@@ -1,0 +1,524 @@
+"""Paged KV cache: fixed-shape page pool + host-side page allocator.
+
+Counterpart of ``ray_tpu/llm/paged_cache.py``.  KV lives in a static
+``[n_layers, num_pages, page_size, n_kv, head_dim]`` pool per K and V; page
+0 is the null page that padded page-table entries point at.  ``init_cache``
+is the torch twin; ``PageAllocator`` and ``PrefixCache`` are host-side numpy
+code, copied unchanged from the JAX package (whose module imports JAX).
+
+``PageAllocator`` keeps three page states: free, in use (refcounted), and
+cached-resident (refcount 0 but indexed by a ``PrefixCache``, KV intact,
+reclaimable on demand).  ``PrefixCache`` is a chain-hashed index of full
+prompt pages with per-family heat for eviction and copy-on-write matching
+of a partially shared boundary block.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
+
+_FALSY = ("", "0", "false", "no", "off")
+
+
+@dataclass
+class CacheConfig:
+    n_layers: int
+    n_kv_heads: int
+    head_dim: int
+    num_pages: int = 256
+    page_size: int = 16
+    dtype: str = "bfloat16"
+
+    @property
+    def tokens_capacity(self) -> int:
+        return self.num_pages * self.page_size
+
+
+def init_cache(cfg: CacheConfig, device: DeviceLike = None):
+    """Zeroed (cache_k, cache_v) pools on ``device`` (CUDA by default;
+    raises where CUDA is missing unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, cfg.num_pages, cfg.page_size,
+             cfg.n_kv_heads, cfg.head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
+
+
+class PageAllocator:
+    """Host-side free list (reference analogue: vLLM's BlockManager).
+
+    Three page states: FREE (on the free list), IN USE (refcount >= 1),
+    and CACHED-RESIDENT (refcount 0 but registered in a PrefixCache —
+    KV intact, reclaimable on demand).  allocate/free keep their original
+    one-owner semantics when retain/mark_cached are never called, so code
+    (and tests) that predate prefix caching see the old behavior.
+    """
+
+    def __init__(self, num_pages: int):
+        # page 0 is reserved as the "null" page that padded page-table
+        # entries point at; attention masks it out by position.
+        self._free: List[int] = list(range(1, num_pages))
+        self._rc: Dict[int, int] = {}
+        self._cached: Set[int] = set()
+        self.num_pages = num_pages
+        # RTPU_DEBUG_ALLOCATOR: assert the page-state partition invariant
+        # after every op (O(num_pages) — test/chaos runs only)
+        self._debug = os.environ.get(
+            "RTPU_DEBUG_ALLOCATOR", "").strip().lower() not in _FALSY
+
+    def _check(self) -> None:
+        """Every page is exactly one of {free-list, refcounted,
+        cached-resident}: the free list is duplicate-free and disjoint
+        from the other two states, refcount entries are strictly
+        positive, and no page is lost (unreachable from all three) —
+        the refcount-leak class ordinary tests can't see."""
+        if not self._debug:
+            return
+        fs = set(self._free)
+        assert len(fs) == len(self._free), \
+            f"duplicate pages on the free list: {sorted(self._free)}"
+        assert 0 not in fs, "null page 0 on the free list"
+        for p, rc in self._rc.items():
+            assert rc >= 1, f"page {p} holds refcount {rc} (should be gone)"
+            assert p not in fs, f"page {p} is both free and refcounted"
+        for p in self._cached:
+            assert p not in fs, f"page {p} is both free and cached-resident"
+        for p in range(1, self.num_pages):
+            assert p in fs or self._rc.get(p, 0) > 0 or p in self._cached, \
+                f"page {p} leaked: not free, not referenced, not cached"
+
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def num_resident(self) -> int:
+        """Cached pages with no live owner (reclaimable without preempting)."""
+        return sum(1 for p in self._cached if self._rc.get(p, 0) <= 0)
+
+    def can_allocate(self, n: int) -> bool:
+        return len(self._free) >= n
+
+    def allocate(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise MemoryError(f"needs {n} pages, {len(self._free)} free")
+        out, self._free = self._free[:n], self._free[n:]
+        for p in out:
+            self._rc[p] = 1
+        self._check()
+        return out
+
+    def retain(self, pages: List[int]) -> None:
+        """Add a reference to already-resident pages (prefix-cache hit)."""
+        for p in pages:
+            if p != 0:
+                self._rc[p] = self._rc.get(p, 0) + 1
+        self._check()
+
+    def refcount(self, page: int) -> int:
+        return self._rc.get(page, 0)
+
+    def is_cached(self, page: int) -> bool:
+        return page in self._cached
+
+    def free(self, pages: List[int]) -> None:
+        """Release one reference; a page returns to the free list only when
+        nothing references it AND it is not cached-resident."""
+        for p in pages:
+            if p == 0:
+                continue
+            rc = self._rc.get(p, 1) - 1
+            if rc > 0:
+                self._rc[p] = rc
+                continue
+            self._rc.pop(p, None)
+            if p not in self._cached:
+                self._free.append(p)
+        self._check()
+
+    def mark_cached(self, pages: List[int]) -> None:
+        self._cached.update(p for p in pages if p != 0)
+        self._check()
+
+    def reclaim(self, page: int) -> None:
+        """Cache eviction: drop residency; back to the free list if idle."""
+        self._cached.discard(page)
+        if self._rc.get(page, 0) <= 0:
+            self._rc.pop(page, None)
+            if page not in self._free:
+                self._free.append(page)
+        self._check()
+
+
+@dataclass
+class _Block:
+    digest: bytes
+    page: int
+    parent: bytes = b""   # digest of the previous block (b"" for roots)
+    root: bytes = b""     # family identity: digest of the chain's block 0
+    tokens: tuple = ()    # block content, for partial (COW) matching
+    # ever reused after insertion (matched by a later lookup, or walked
+    # through by a sibling chain's insert): True marks the shared SPINE
+    # of a family; False marks a never-reused block (a request's unique
+    # tail) — the junk eviction should drain first
+    was_hit: bool = False
+
+
+@dataclass
+class _Family:
+    """Per-family heat: one entry per resident root digest."""
+
+    hits: int = 0          # admissions that reused at least one block
+    blocks: int = 0        # resident blocks in this family
+    last_hit: float = 0.0  # monotonic ts of the last reuse (0 = never)
+
+
+class PrefixCache:
+    """Chain-hashed index of full prompt pages resident in the KV pool.
+
+    Digest of block k = blake2b(digest of block k-1 || tokens of block k),
+    so a digest identifies the entire prefix up to and including its page —
+    matching is a walk from the root, never a per-page comparison (vLLM's
+    block hash scheme).  Eviction is driven by the allocator owner (engine)
+    when the pool runs dry and is FAMILY-aware: drain never-reused leaves
+    (unique request tails) coldest-family-first across the whole pool,
+    then reclaim leaf-first within the family least recently hit, never
+    a block whose child blocks are still resident — so unique traffic
+    drains cold chains from the tip instead of cutting hot shared roots
+    out from under queued requests.
+    """
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self._blocks: "OrderedDict[bytes, _Block]" = OrderedDict()
+        self._by_page: Dict[int, bytes] = {}
+        # parent digest -> digests of its RESIDENT children (b"" = roots);
+        # maintained on insert/evict, so the leaf test is one dict lookup
+        self._children: Dict[bytes, Set[bytes]] = {}
+        self._families: Dict[bytes, _Family] = {}
+        # resident-digest advertisement cap (the router's exact-digest hit
+        # path degrades to the n-gram tree past it)
+        self.digest_limit = int(
+            os.environ.get("RTPU_PREFIX_DIGESTS", "16") or 16)
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
+        self.evictions = 0
+        self.evictions_cold_family = 0
+        self.evictions_hot_root_forced = 0
+        self.cow_hits = 0
+
+    # ------------------------- hashing -------------------------------
+
+    @staticmethod
+    def _chain(prev: bytes, tokens) -> bytes:
+        h = hashlib.blake2b(prev, digest_size=8)
+        h.update(np.asarray(tokens, np.int32).tobytes())
+        return h.digest()
+
+    @classmethod
+    def digest_for(cls, tokens: List[int], page_size: int) -> Optional[str]:
+        """Digest of the longest cacheable prefix of `tokens` (the P/D
+        residency hint: two processes computing it agree byte-for-byte)."""
+        n = len(tokens)
+        blocks = max(0, (n - 1) // page_size)
+        if blocks == 0:
+            return None
+        d = b""
+        for k in range(blocks):
+            d = cls._chain(d, tokens[k * page_size:(k + 1) * page_size])
+        return d.hex()
+
+    @classmethod
+    def root_digest_for(cls, tokens: List[int],
+                        page_size: int) -> Optional[str]:
+        """Digest of `tokens`' FIRST full block — the family identity the
+        KV tier addresses spine objects by (same chain hash as
+        digest_for, so every process derives the same address)."""
+        if len(tokens) < page_size:
+            return None
+        return cls._chain(b"", tokens[:page_size]).hex()
+
+    # ------------------------- index ops -----------------------------
+
+    def __len__(self) -> int:
+        return len(self._blocks)
+
+    def _walk(self, tokens: List[int],
+              refresh: bool = True) -> Tuple[List[int], bytes, int]:
+        """Longest chain of cached FULL pages covering a proper prefix;
+        returns (pages, digest of the last matched block or b"", blocks
+        matched).  Capped at (n-1)//page_size blocks so at least one
+        suffix token is always left to prefill (the logits that seed
+        decode)."""
+        ps = self.page_size
+        n = len(tokens)
+        pages: List[int] = []
+        d = b""
+        for k in range(max(0, (n - 1) // ps)):
+            nd = self._chain(d, tokens[k * ps:(k + 1) * ps])
+            blk = self._blocks.get(nd)
+            if blk is None:
+                break
+            if refresh:
+                self._blocks.move_to_end(nd)
+                blk.was_hit = True
+            d = nd
+            pages.append(blk.page)
+        return pages, d, len(pages)
+
+    def _touch_family(self, d: bytes) -> None:
+        """Record a reuse on the family owning block `d` (heat signal for
+        eviction — updated at match time, unlike the hit/lookup counters
+        the caller commits only on successful admission, because queued
+        retries for a family ARE demand for its pages)."""
+        blk = self._blocks.get(d)
+        if blk is None:
+            return
+        fam = self._families.get(blk.root)
+        if fam is not None:
+            fam.hits += 1
+            fam.last_hit = time.monotonic()
+
+    def match(self, tokens: List[int]) -> List[int]:
+        """Full-page prefix match (LRU refresh + family heat only; the
+        hit/lookup counters are committed by the caller on admission, so a
+        request bouncing off a full pool doesn't inflate the hit rate)."""
+        pages, d, _ = self._walk(tokens)
+        if pages:
+            self._touch_family(d)
+        return pages
+
+    def match_cow(self, tokens: List[int]) -> Tuple[List[int],
+                                                    Optional[int], int]:
+        """Full-page match PLUS the copy-on-write boundary: returns
+        (pages, cow_src_page, cow_len).  When the first uncovered block of
+        `tokens` shares its leading cow_len tokens with a resident child
+        block of the matched chain, cow_src_page is that child's page —
+        the engine copies it into a fresh page and prefills only from the
+        divergence point, instead of recomputing the whole block."""
+        pages, d, k = self._walk(tokens)
+        if pages:
+            self._touch_family(d)
+        ps = self.page_size
+        want = tokens[k * ps:(k + 1) * ps]
+        # at least one suffix token must remain to prefill
+        limit = min(len(want), len(tokens) - 1 - k * ps)
+        if limit <= 0:
+            return pages, None, 0
+        best_src, best_m = None, 0
+        for cd in self._children.get(d, ()):
+            blk = self._blocks.get(cd)
+            if blk is None:
+                continue
+            m = 0
+            for a, b in zip(blk.tokens[:limit], want[:limit]):
+                if a != b:
+                    break
+                m += 1
+            if m > best_m:
+                best_src, best_m = blk, m
+        if best_src is None or best_m <= 0:
+            return pages, None, 0
+        self._blocks.move_to_end(best_src.digest)
+        best_src.was_hit = True
+        self._touch_family(best_src.digest)
+        self.cow_hits += 1
+        return pages, best_src.page, best_m
+
+    def peek_match_tokens(self, tokens: List[int]) -> int:
+        """Matched-token count WITHOUT LRU refresh or heat updates — the
+        hit-aware admission ranking signal (scanning the waiting queue
+        must not reorder eviction)."""
+        pages, d, k = self._walk(tokens, refresh=False)
+        ps = self.page_size
+        want = tokens[k * ps:(k + 1) * ps]
+        limit = min(len(want), len(tokens) - 1 - k * ps)
+        best_m = 0
+        if limit > 0:
+            for cd in self._children.get(d, ()):
+                blk = self._blocks.get(cd)
+                if blk is None:
+                    continue
+                m = 0
+                for a, b in zip(blk.tokens[:limit], want[:limit]):
+                    if a != b:
+                        break
+                    m += 1
+                best_m = max(best_m, m)
+        return k * ps + best_m
+
+    def note_lookup(self, lookup_tokens: int, hit_tokens: int) -> None:
+        self.lookup_tokens += lookup_tokens
+        self.hit_tokens += hit_tokens
+
+    def insert(self, tokens: List[int], pages: List[int]) -> List[int]:
+        """Register every full page of `tokens` held in `pages`; returns the
+        pages newly added to the index (callers mark those cached-resident).
+        A digest that already maps to some other resident page keeps the
+        existing mapping — identical content, and the old page may be
+        shared by live sequences."""
+        ps = self.page_size
+        full = min(len(tokens) // ps, len(pages))
+        d = b""
+        root = b""
+        new_pages: List[int] = []
+        for k in range(full):
+            prev = d
+            d = self._chain(d, tokens[k * ps:(k + 1) * ps])
+            if k == 0:
+                root = d
+            blk = self._blocks.get(d)
+            if blk is not None:
+                self._blocks.move_to_end(d)
+                blk.was_hit = True  # a sibling chain runs through it
+                continue
+            page = pages[k]
+            if page == 0 or page in self._by_page:
+                continue
+            self._blocks[d] = _Block(
+                d, page, parent=prev, root=root,
+                tokens=tuple(int(t) for t in tokens[k * ps:(k + 1) * ps]))
+            self._by_page[page] = d
+            self._children.setdefault(prev, set()).add(d)
+            self._families.setdefault(root, _Family()).blocks += 1
+            new_pages.append(page)
+        return new_pages
+
+    def _remove(self, blk: _Block) -> None:
+        del self._blocks[blk.digest]
+        del self._by_page[blk.page]
+        sibs = self._children.get(blk.parent)
+        if sibs is not None:
+            sibs.discard(blk.digest)
+            if not sibs:
+                del self._children[blk.parent]
+        fam = self._families.get(blk.root)
+        if fam is not None:
+            fam.blocks -= 1
+            if fam.blocks <= 0:
+                del self._families[blk.root]
+        self.evictions += 1
+
+    def _is_leaf(self, d: bytes) -> bool:
+        return not self._children.get(d)
+
+    def evict_one(self, refcount: Callable[[int], int]
+                  ) -> Optional[Tuple[int, str]]:
+        """Reclaim one block: leaf-first within the COLDEST family.
+
+        Candidates are unreferenced blocks with no resident children;
+        among them the family least recently hit loses a block (never-hit
+        families sort before any family with a hit), LRU within ties —
+        class "cold_family".  NEVER-REUSED leaves (a request's unique
+        tail: no later lookup or sibling insert ever touched the block)
+        are drained across ALL families before any reused spine block is
+        cut — otherwise the momentarily-coldest hot family loses spine
+        pages while hotter families sit on piles of junk.  Only when
+        every evictable block still has resident children (its leaves are
+        all pinned) is a chain cut at an interior block, oldest first —
+        class "hot_root_forced", the event the bench counts as throwing
+        locality away.  Returns (page, class) or None if every block is
+        pinned."""
+        for spine_ok in (False, True):
+            best: Optional[_Block] = None
+            best_heat: Optional[Tuple[float, int]] = None
+            for d, blk in self._blocks.items():  # oldest-first = LRU
+                if refcount(blk.page) > 0 or not self._is_leaf(d):
+                    continue
+                if blk.was_hit and not spine_ok:
+                    continue
+                fam = self._families.get(blk.root)
+                heat = ((fam.last_hit, fam.hits) if fam is not None
+                        else (0.0, 0))
+                if best_heat is None or heat < best_heat:
+                    best, best_heat = blk, heat
+            if best is not None:
+                self._remove(best)
+                self.evictions_cold_family += 1
+                return best.page, "cold_family"
+        for d, blk in list(self._blocks.items()):
+            if refcount(blk.page) <= 0:
+                self._remove(blk)
+                self.evictions_hot_root_forced += 1
+                return blk.page, "hot_root_forced"
+        return None
+
+    def digests(self, limit: Optional[int] = None) -> List[str]:
+        """Most-recently-used block digests (hex) — the resident-prefix
+        advertisement the request router matches P/D hints against.
+        Default cap: ``RTPU_PREFIX_DIGESTS`` (pools with more hot blocks
+        than the cap degrade the router to its n-gram tree)."""
+        if limit is None:
+            limit = self.digest_limit
+        out = []
+        for d in reversed(self._blocks):
+            out.append(d.hex())
+            if len(out) >= limit:
+                break
+        return out
+
+    def family_hits(self, root: bytes) -> int:
+        """Hit count of the family rooted at `root`, -1 when the family
+        has no resident blocks (the KV tier's seal gate)."""
+        fam = self._families.get(root)
+        return fam.hits if fam is not None else -1
+
+    def spine(self, root: bytes) -> Tuple[List[int], List[int]]:
+        """The family's shared spine: from the root block down while
+        exactly ONE resident child was ever reused (was_hit) — the pages
+        later requests actually re-walk, and exactly what a KV-tier seal
+        captures.  Unique tails (was_hit=False) and fork points (two hot
+        children — the shared prefix ends where tails diverge) stop the
+        walk.  Returns (tokens, pages); empty when the root is gone."""
+        blk = self._blocks.get(root)
+        if blk is None:
+            return [], []
+        toks: List[int] = list(blk.tokens)
+        pages: List[int] = [blk.page]
+        d = root
+        while True:
+            hot = [cd for cd in self._children.get(d, ())
+                   if (b := self._blocks.get(cd)) is not None and b.was_hit]
+            if len(hot) != 1:
+                break
+            d = hot[0]
+            b = self._blocks[d]
+            toks.extend(b.tokens)
+            pages.append(b.page)
+        return toks, pages
+
+    def family_stats(self) -> List[dict]:
+        """Per-family heat rows, hottest first (debug/CLI view)."""
+        rows = [{"root": root.hex(), "blocks": fam.blocks,
+                 "hits": fam.hits,
+                 "last_hit_age_s": round(
+                     time.monotonic() - fam.last_hit, 3)
+                 if fam.last_hit else None}
+                for root, fam in self._families.items()]
+        rows.sort(key=lambda r: (r["last_hit_age_s"] is None,
+                                 r["last_hit_age_s"] or 0.0))
+        return rows
+
+    def stats(self) -> dict:
+        return {
+            "blocks": len(self._blocks),
+            "families": len(self._families),
+            "hit_tokens": self.hit_tokens,
+            "lookup_tokens": self.lookup_tokens,
+            "evictions": self.evictions,
+            "evictions_cold_family": self.evictions_cold_family,
+            "evictions_hot_root_forced": self.evictions_hot_root_forced,
+            "cow_hits": self.cow_hits,
+            "digest_limit": self.digest_limit,
+            "hit_rate": round(self.hit_tokens / self.lookup_tokens, 4)
+            if self.lookup_tokens else 0.0,
+        }
