@@ -8,16 +8,24 @@ Phases, each fatal on failure:
      the sources in ``ray_tpu_torch/ops/csrc`` (one nvcc per source, in
      parallel);
   2. kernels against their plain versions on the card, in bf16 and f32, at
-     the shapes the main path gives them and a few more;
+     the shapes the main paths give them and a few more: the flash forward,
+     the dK/dV and dQ backward kernels, and gradients through the
+     ``FlashAttention`` autograd Function against autograd through the
+     plain attention;
   3. kernel, plain-version, bound and library (SDPA) times at the engine's
-     prefill shapes;
+     prefill shapes and at the trainer's attention shape;
   4. ``llama.apply`` at ``__graft_entry__.entry()``'s config: logits through
      the kernel against logits through the plain attention;
   5. the serving engine at full width (the serving model of ``bench.py``):
-     every request streams its full token count, the kernel's launch
-     counter grew during the run, and one prefill's first-token logits
-     through the kernel agree with the same prefill through the plain
-     attention.
+     every request streams its full token count, the forward kernel's
+     launch counter grew during the run, and one prefill's first-token
+     logits through the kernel agree with the same prefill through the
+     plain attention;
+  6. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
+     12, seq 1024): the first step's loss and grad norm through the kernels
+     agree with the plain attention's, the loss falls on a repeated batch,
+     each of the three kernels launches 12 times a step, and a few steps
+     are timed and profiled.
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 where CUDA is missing or any phase fails.  Details go to
@@ -93,16 +101,32 @@ def device_ms(fn, iters: int = 20) -> float:
     return sum(t for _, t, _ in device_events(fn, iters)) / iters
 
 
+def _pairs(sq, sk, causal):
+    """Unmasked (query, key) pairs of one head, top-left causal."""
+    if causal:
+        return sum(min(r + 1, sk) for r in range(sq))
+    return sq * sk
+
+
 def attention_work(bh, sq, sk, d, causal, itemsize):
     """(operations, bytes) one flash-forward call needs: 4*d per unmasked
     (query, key) pair; q, k, v read once, out and lse written once."""
-    if causal:
-        pairs = sum(min(r + 1, sk) for r in range(sq))
-    else:
-        pairs = sq * sk
-    ops = 4 * d * pairs * bh
+    ops = 4 * d * _pairs(sq, sk, causal) * bh
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * itemsize + bh * sq * 4
     return ops, nbytes
+
+
+def attention_bwd_work(kernel, bh, bh_kv, sq, sk, d, causal, itemsize):
+    """(operations, bytes) of one backward kernel.  dK/dV: 8*d per
+    unmasked pair (q.k, dO.v, dV += p dO, dK += dS q); dQ: 6*d (q.k, dO.v,
+    dQ += dS k).  Each reads q, dO, k, v, lse and delta once; dK/dV writes
+    dk and dv once, dQ writes dq once."""
+    per_pair = {"flash_bwd_dkv": 8, "flash_bwd_dq": 6}[kernel]
+    ops = per_pair * d * _pairs(sq, sk, causal) * bh
+    reads = (2 * bh * sq * d + 2 * bh_kv * sk * d) * itemsize + 2 * bh * sq * 4
+    writes = (2 * bh_kv * sk * d if kernel == "flash_bwd_dkv"
+              else bh * sq * d) * itemsize
+    return ops, reads + writes
 
 
 def bound_ms(ops, nbytes, dtype_name):
@@ -129,6 +153,28 @@ def out_tolerance(dtype, ref):
     if dtype == torch.float32:
         return 2e-5
     return 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
+
+
+def grad_tolerance(dtype, ref):
+    """f32: the backward kernels and the plain version sum up to 2048 terms
+    in other orders; 1e-4 of the largest gradient.  bf16: both compute in
+    f32 from the same bf16 inputs and round each gradient once; 2 bf16 ulps
+    at the largest gradient, as ``out_tolerance``."""
+    import torch
+
+    scale = max(1.0, float(ref.float().abs().max()))
+    return (1e-4 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
+def autograd_tolerance(dtype, ref):
+    """Gradients of sum(attention ** 2): the two forwards' outputs differ
+    by the summation order (f32) or by one bf16 rounding of out and of
+    d_out = 2 * out (bf16) before the backward rounds once more; 1e-4 of
+    the largest gradient in f32, 4 bf16 ulps in bf16."""
+    import torch
+
+    scale = max(1.0, float(ref.float().abs().max()))
+    return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale
 
 
 LSE_TOL = 1e-4  # lse is f32 in both; only the summation order differs
@@ -181,14 +227,90 @@ def check_kernels(report):
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"flash_fwd disagrees with its plain version: {bad}")
-    # no silent autograd: inputs that need a gradient are refused on CUDA
-    q, k, v = make_qkv(gen, 1, 2, 2, 64, 64, 64, torch.bfloat16)
-    try:
-        attention.flash_forward(q.requires_grad_(), k, v, True, 0.125)
-    except NotImplementedError:
-        pass
-    else:
-        raise SystemExit("flash_forward accepted requires_grad inputs")
+
+
+BWD_CASES = [  # (name, b, h, hkv, sq, sk, d, causal)
+    ("trainer", 12, 12, 12, 1024, 1024, 64, True),
+    ("seq128", 1, 12, 12, 128, 128, 64, True),
+    ("entry", 2, 8, 4, 256, 256, 64, True),
+    ("llama3_8b", 1, 32, 8, 2048, 2048, 128, True),
+    ("llama3_8b", 1, 32, 8, 2048, 2048, 128, False),
+    ("ragged", 1, 4, 2, 100, 100, 32, True),
+    ("ragged", 2, 4, 1, 77, 130, 64, False),
+]
+
+
+def check_backward(report):
+    """The dK/dV and dQ kernels against ``reference_attention_backward`` on
+    the same inputs (out and lse from the forward kernel), then gradients
+    of sum(attention ** 2) through ``FlashAttention`` against autograd
+    through the plain attention."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, h, hkv, sq, sk, d, causal in BWD_CASES:
+            q, k, v = make_qkv(gen, b, h, hkv, sq, sk, d, dtype)
+            d_out = torch.randn(q.shape, generator=gen, device="cuda").to(
+                dtype)
+            scale = 1.0 / math.sqrt(d)
+            out, lse = attention.flash_forward(q, k, v, causal, scale)
+            got = attention.flash_backward(q, k, v, out, lse, d_out, causal,
+                                           scale)
+            torch.cuda.synchronize()
+            want = attention.reference_attention_backward(
+                q, k, v, out, lse, d_out, causal, scale)
+            row = {"case": name, "b": b, "h": h, "hkv": hkv, "sq": sq,
+                   "sk": sk, "d": d, "causal": causal,
+                   "dtype": str(dtype)[6:], "ok": True}
+            for g_name, a, w in zip(("dq", "dk", "dv"), got, want):
+                err = float((a.float() - w.float()).abs().max())
+                tol = grad_tolerance(dtype, w)
+                row[f"err_{g_name}"], row[f"tol_{g_name}"] = err, tol
+                row["ok"] &= (err <= tol
+                              and bool(torch.isfinite(a.float()).all()))
+            rows.append(row)
+            print(f"backward-vs-plain {name:10s} b{b} h{h}/{hkv} s{sq}x{sk} "
+                  f"d{d} causal={causal!s:5s} {row['dtype']:8s} " + "  ".join(
+                      f"{g} err {row['err_' + g]:.3e} (tol "
+                      f"{row['tol_' + g]:.3e})" for g in ("dq", "dk", "dv"))
+                  + f"  {'ok' if row['ok'] else 'FAIL'}", flush=True)
+    report["backward_checks"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"flash_bwd disagrees with its plain version: {bad}")
+
+    # autograd through the Function against autograd through the plain
+    # attention, at entry()'s GQA shape in the (b, s, h, d) layout
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        base = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((2, 256, 8, 64), (2, 256, 4, 64),
+                              (2, 256, 4, 64))]
+        grads = {}
+        for impl, fn in attention.ATTENTION.items():
+            leaves = [x.clone().requires_grad_() for x in base]
+            loss = (fn(*leaves, causal=True).float() ** 2).sum()
+            grads[impl] = torch.autograd.grad(loss, leaves)
+        row = {"dtype": str(dtype)[6:], "ok": True}
+        for g_name, a, w in zip(("dq", "dk", "dv"), grads["flash"],
+                                grads["plain"]):
+            err = float((a.float() - w.float()).abs().max())
+            tol = autograd_tolerance(dtype, w)
+            row[f"err_{g_name}"], row[f"tol_{g_name}"] = err, tol
+            row["ok"] &= err <= tol and a.shape == w.shape
+        rows.append(row)
+        print(f"autograd FlashAttention vs plain, entry GQA 8:4 s256 "
+              f"{row['dtype']:8s} " + "  ".join(
+                  f"{g} err {row['err_' + g]:.3e} (tol {row['tol_' + g]:.3e})"
+                  for g in ("dq", "dk", "dv"))
+              + f"  {'ok' if row['ok'] else 'FAIL'}", flush=True)
+    report["autograd_checks"] = rows
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("gradients through FlashAttention disagree")
 
 
 def time_kernels(report):
@@ -230,6 +352,84 @@ def time_kernels(report):
               f"call in a loop: kernel {wall['kernel']:.4f}, plain "
               f"{wall['plain']:.4f}, sdpa {wall['sdpa']:.4f}", flush=True)
     report["kernel_times"] = rows
+    return rows
+
+
+def kernel_device_ms(fn, names, iters: int = 10):
+    """Device ms per call of ``fn`` for each kernel whose name contains one
+    of ``names``, from the profiler."""
+    rows = device_events(fn, iters)
+    return {n: sum(t for k, t, _ in rows if n in k) / iters for n in names}
+
+
+def time_trainer_attention(report):
+    """The three kernels at the trainer's attention shape (batch 12, 12
+    heads, seq 1024, head_dim 64, bf16, causal): device ms per call against
+    the plain versions, SDPA forward and SDPA backward under autograd (the
+    library yardsticks, timed only), and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+
+    b, h, s, d, dtype = 12, 12, 1024, 64, torch.bfloat16
+    bh = b * h
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = make_qkv(gen, 1, bh, bh, s, s, d, dtype)
+    d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = attention.flash_forward(q, k, v, True, scale)
+    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, d_out))
+    leaves = [x.clone().requires_grad_() for x in (q4, k4, v4)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              scale=scale)
+
+    bwd = kernel_device_ms(
+        lambda: attention.flash_backward(q, k, v, out, lse, d_out, True,
+                                         scale),
+        ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+    dev = {
+        "flash_fwd": device_ms(
+            lambda: attention.flash_forward(q, k, v, True, scale)),
+        "flash_bwd_dkv": bwd["flash_bwd_dkv_kernel"],
+        "flash_bwd_dq": bwd["flash_bwd_dq_kernel"],
+        "plain_fwd": device_ms(
+            lambda: attention.reference_attention(q, k, v, True, scale), 5),
+        "plain_bwd": device_ms(
+            lambda: attention.reference_attention_backward(
+                q, k, v, out, lse, d_out, True, scale), 5),
+        "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=scale)),
+        "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, do4, retain_graph=True)),
+    }
+    ref_out, _ = attention.reference_attention(q, k, v, True, scale)
+    got = attention.flash_backward(q, k, v, out, lse, d_out, True, scale)
+    want = attention.reference_attention_backward(q, k, v, out, lse, d_out,
+                                                  True, scale)
+    errs = [float((a.float() - w.float()).abs().max())
+            for a, w in zip(got, want)]
+    rows = {}
+    for name, plain, lib, err in (
+            ("flash_fwd", "plain_fwd", "sdpa_fwd",
+             float((out.float() - ref_out.float()).abs().max())),
+            ("flash_bwd_dkv", "plain_bwd", "sdpa_bwd", max(errs[1:])),
+            ("flash_bwd_dq", "plain_bwd", "sdpa_bwd", errs[0])):
+        if name == "flash_fwd":
+            ops, nbytes = attention_work(bh, s, s, d, True, 2)
+        else:
+            ops, nbytes = attention_bwd_work(name, bh, bh, s, s, d, True, 2)
+        bms, by = bound_ms(ops, nbytes, "bfloat16")
+        rows[name] = {"ms": dev[name], "plain_ms": dev[plain],
+                      "library_ms": dev[lib], "bound_ms": bms,
+                      "bound_by": by, "ops": ops, "bytes": nbytes,
+                      "max_abs_err": err}
+        print(f"time {name} trainer shape b{b} h{h} s{s} d{d} bf16 causal, "
+              f"device ms per call: kernel {dev[name]:.4f}, plain "
+              f"{dev[plain]:.4f} ({plain}), sdpa {dev[lib]:.4f} ({lib}), "
+              f"bound {bms:.5f} ({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB)"
+              f"; max abs err vs plain {err:.3e}", flush=True)
+    report["trainer_kernel_times"] = rows
     return rows
 
 
@@ -441,6 +641,142 @@ def profile_steps(engine, cfg, ccfg, toks, rows, slots):
     return out
 
 
+# The trainer's first step through the kernels against the same step
+# through the plain attention, in bf16.  The two attentions' outputs and
+# gradients differ by single bf16 roundings that average out over 12288
+# tokens: the mean loss (~ln 50257 = 10.8) within 1e-3, the pre-clip
+# global grad norm within 1% of its value.
+STEP_LOSS_TOL, STEP_NORM_RTOL = 1e-3, 1e-2
+BATCH, SEQ = 12, 1024  # bench.py's headline trainer
+
+
+def run_trainer(report):
+    """``bench.py``'s GPT-2 124M train step at full width on the card.
+    Returns the kernels' launch counts over the counted, timed steps."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.train import step as train
+
+    cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)  # bench.py main()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params0 = gpt2.init(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in train.tree_leaves(params0))
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1),
+                           generator=gen, device="cuda")
+
+    def fresh(opt):
+        params = train.tree_map(torch.clone, params0)
+        return {"params": params, "opt_state": opt.init(params), "step": 0}
+
+    # (a) the first step through the kernels and through the plain attention
+    opt = train.default_optimizer(warmup_steps=1)
+    first = {}
+    for impl in ("plain", "flash"):
+        state = fresh(opt)
+        step = train.make_train_step(gpt2, cfg, opt, attn_impl=impl)
+        state, m = step(state, tokens)
+        first[impl] = {"loss": m["loss"].item(),
+                       "grad_norm": m["grad_norm"].item()}
+        if impl == "plain":
+            del state, step, m
+            torch.cuda.empty_cache()
+    d_loss = abs(first["flash"]["loss"] - first["plain"]["loss"])
+    d_norm = abs(first["flash"]["grad_norm"] - first["plain"]["grad_norm"])
+    ok_a = (d_loss <= STEP_LOSS_TOL
+            and d_norm <= STEP_NORM_RTOL * first["plain"]["grad_norm"]
+            and math.isfinite(first["flash"]["loss"]))
+    print(f"trainer first step, kernels vs plain attention: loss "
+          f"{first['flash']['loss']:.6f} vs {first['plain']['loss']:.6f} "
+          f"(diff {d_loss:.3e}, tol {STEP_LOSS_TOL:.0e}); grad norm "
+          f"{first['flash']['grad_norm']:.6f} vs "
+          f"{first['plain']['grad_norm']:.6f} (diff {d_norm:.3e}, tol "
+          f"{STEP_NORM_RTOL:.0%}); ln(vocab) {math.log(cfg.vocab_size):.4f}",
+          flush=True)
+    if not ok_a:
+        raise SystemExit("the first train step through the kernels disagrees")
+
+    # (c) the loss falls on one repeated batch (warmup 1: the first update
+    # has lr 0, the next ones the peak rate)
+    losses = [first["flash"]["loss"]]
+    for _ in range(4):
+        state, m = step(state, tokens)
+        losses.append(m["loss"].item())
+    print("trainer repeated batch, loss per step: "
+          + ", ".join(f"{x:.4f}" for x in losses), flush=True)
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise SystemExit("the loss did not fall on a repeated batch")
+    del state, step, m, params0
+    torch.cuda.empty_cache()
+
+    # (b) and the timing: bench.py's optimizer, warm-up, then counted steps
+    opt = train.default_optimizer()
+    state = train.create_train_state(gpt2, cfg, opt, gen, device="cuda")
+    step = train.make_train_step(gpt2, cfg, opt)
+    for _ in range(2):
+        state, m = step(state, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 5
+    attention.flash_forward.launches = 0
+    for key in attention.flash_backward.launches:
+        attention.flash_backward.launches[key] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    def counts():
+        return {"flash_fwd": attention.flash_forward.launches,
+                **attention.flash_backward.launches}
+
+    per_step = []  # each kernel's launches in each step (host counters)
+    start.record()
+    for _ in range(n_steps):
+        before = counts()
+        state, m = step(state, tokens)
+        per_step.append({k: n - before[k] for k, n in counts().items()})
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    step_ms = start.elapsed_time(end) / n_steps
+    peak_bytes = torch.cuda.max_memory_allocated()
+    tok_s = BATCH * SEQ / (step_ms / 1e3)
+    tflops = tok_s * 6 * n_params / 1e12  # bench.py's count (6 P / token)
+    final_loss = m["loss"].item()
+    want = {k: cfg.n_layers for k in launches}
+    print(f"trainer GPT-2 124M (this card): {n_params} params, batch "
+          f"{BATCH} x seq {SEQ}, {n_steps} steps: {step_ms:.3f} ms per step "
+          f"(host {wall / n_steps * 1e3:.3f} ms), {tok_s:.1f} tokens/s, "
+          f"model {tflops:.3f} TFLOP/s = {tflops / 989:.4f} of 989 TFLOP/s; "
+          f"peak allocated {peak_bytes / 2**30:.3f} GiB; loss {final_loss:.4f}"
+          f"; launches {launches}", flush=True)
+    if any(d != want for d in per_step):
+        raise SystemExit(f"kernel launches per trainer step {per_step}, want "
+                         f"{want} in each")
+    if not math.isfinite(final_loss):
+        raise SystemExit("the trainer's loss is not finite")
+
+    # where one step's device time goes (outside the counted run)
+    rows = device_events(lambda: step(state, tokens))
+    busy = sum(r[1] for r in rows)
+    print(f"trainer step device busy {busy:.3f} ms of {step_ms:.3f} ms "
+          f"(idle share {1 - busy / step_ms:.3f}); top: " + "; ".join(
+              f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:8]),
+          flush=True)
+    report["trainer"] = {
+        "n_params": n_params, "batch": BATCH, "seq": SEQ, "steps": n_steps,
+        "first_step": first, "repeated_batch_losses": losses,
+        "step_ms": step_ms, "host_step_ms": wall / n_steps * 1e3,
+        "tokens_per_s": tok_s, "model_tflops": tflops,
+        "peak_share_989": tflops / 989, "max_memory_allocated": peak_bytes,
+        "final_loss": final_loss, "launches": launches,
+        "device_busy_ms": busy,
+        "top": [{"kernel": k[:90], "ms": t, "count": c}
+                for k, t, c in rows[:12]]}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -457,7 +793,7 @@ def main() -> int:
               "cuda": torch.version.cuda}
     print(f"card: {report['card']}", flush=True)
     t0 = time.monotonic()
-    paths = _build.build(["flash_fwd"])
+    paths = _build.build(["flash_fwd", "flash_bwd"])
     report["build_s"] = time.monotonic() - t0
     for name, path in paths.items():
         log = path.with_name(path.name + ".log")
@@ -468,19 +804,37 @@ def main() -> int:
               + " | ".join(info), flush=True)
 
     check_kernels(report)
-    times = time_kernels(report)
+    check_backward(report)
+    time_kernels(report)
+    trainer_times = time_trainer_attention(report)
     check_apply(report)
-    launches = run_engine(report)
+    engine_launches = run_engine(report)
+    trainer_launches = run_trainer(report)
 
-    main_row = next(r for r in times if r["seq"] == 128)
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:121",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+    # times at the trainer's shape; flash_fwd's launches are its counted
+    # engine run plus its counted trainer run
+    sources = {"flash_fwd": ("flash_fwd.cu", "ray_tpu/ops/attention.py:121"),
+               "flash_bwd_dkv": ("flash_bwd.cu",
+                                 "ray_tpu/ops/attention.py:280"),
+               "flash_bwd_dq": ("flash_bwd.cu",
+                                "ray_tpu/ops/attention.py:303")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        row = trainer_times[name]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"ray_tpu_torch/ops/csrc/{src}",
+                 "replaces": replaces,
+                 "launches": trainer_launches[name],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"]}
+        if name == "flash_fwd":
+            entry["launches"] += engine_launches
+            entry["launches_by_path"] = {
+                "engine": engine_launches,
+                "trainer": trainer_launches[name]}
+        kernels.append(entry)
     report["kernels"] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,11 +1,11 @@
 """Carry JAX parameter trees (as numpy) into the port unchanged.
 
-The JAX package's Llama parameters are a nested dict of arrays with layers
-stacked on a leading axis; the port keeps that layout and those keys.  The
-caller turns the JAX tree into numpy (``jax.tree.map(np.asarray, params)``)
-so that nothing here imports JAX.  No value is cast: the forwards cast
-matmul weights and norms to ``cfg.dtype`` on use and keep ``lm_head`` in
-f32 where JAX does.
+The JAX package's Llama and GPT-2 parameters are nested dicts of arrays
+with layers stacked on a leading axis; the port keeps that layout and those
+keys, so one walk serves both.  The caller turns the JAX tree into numpy
+(``jax.tree.map(np.asarray, params)``) so that nothing here imports JAX.
+No value is cast: the forwards cast matmul weights and norms to
+``cfg.dtype`` on use and keep ``lm_head`` in f32 where JAX does.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def llama_params_from_jax(tree: Dict, device: DeviceLike = None) -> Dict:
+def params_from_jax(tree: Dict, device: DeviceLike = None) -> Dict:
     """A port state with the same keys and values as the numpy tree, on
     ``device`` (CUDA unless ``device="cpu"``)."""
     dev = resolve_device(device)
@@ -39,3 +39,7 @@ def llama_params_from_jax(tree: Dict, device: DeviceLike = None) -> Dict:
         return _tensor(node, dev)
 
     return walk(tree)
+
+
+llama_params_from_jax = params_from_jax
+gpt2_params_from_jax = params_from_jax

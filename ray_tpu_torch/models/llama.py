@@ -5,8 +5,9 @@ of tensors with the same keys and the same stacked ``[n_layers, ...]``
 layout as the JAX tree, so JAX parameters load unchanged
 (``ray_tpu_torch.convert``).  Master weights are f32; matmul weights and
 norms are cast to ``cfg.dtype`` where they are used, as in JAX.
-Attention goes through ``ops.attention.flash_attention`` (the Hopper kernel
-on CUDA tensors, its plain version on CPU tensors).
+Attention goes through ``ops.attention.flash_attention`` (the Hopper
+kernels, forward and backward, on CUDA tensors; their plain versions on CPU
+tensors).  ``loss_fn`` is the next-token cross-entropy the trainer takes.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
+from ray_tpu_torch.models.losses import chunked_softmax_xent
 from ray_tpu_torch.ops.attention import ATTENTION
 
 
@@ -33,7 +36,7 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    remat: bool = True  # kept for config parity; no backward in this port yet
+    remat: bool = True  # per-layer non-reentrant checkpoint in training
     loss_chunk: int = 256
 
     @property
@@ -173,12 +176,20 @@ def trunk(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
           attn_impl: str = "flash") -> torch.Tensor:
     """Embeddings -> final RMS norm, without the LM head: (b, s, d).
     ``attn_impl`` "flash" is the kernel path; "plain" runs the plain
-    attention on any device (what the kernel is held against)."""
+    attention on any device (what the kernel is held against).  With
+    ``cfg.remat`` each layer runs under a non-reentrant checkpoint while
+    gradients are being recorded (``jax.checkpoint`` in JAX)."""
     attn = ATTENTION[attn_impl]
     x = state["embed"][tokens].to(torch_dtype(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = _layer(cfg, x, layer_params(state["layers"], i), positions, attn)
+        p = layer_params(state["layers"], i)
+        if remat:
+            x = checkpoint(_layer, cfg, x, p, positions, attn,
+                           use_reentrant=False)
+        else:
+            x = _layer(cfg, x, p, positions, attn)
     return rms_norm(x, state["final_norm"], cfg.norm_eps)
 
 
@@ -189,3 +200,13 @@ def apply(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     accumulates in f32 (a product of two bf16 values is exact in f32)."""
     x = trunk(state, tokens, cfg, attn_impl)
     return x.float() @ state["lm_head"].to(x.dtype).float()
+
+
+def loss_fn(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            attn_impl: str = "flash") -> torch.Tensor:
+    """Next-token cross-entropy of tokens (batch, seq + 1), with the head
+    product in ``cfg.dtype`` and f32 logits, chunked by ``cfg.loss_chunk``
+    (``models/losses.py``)."""
+    x = trunk(state, tokens[:, :-1], cfg, attn_impl)
+    return chunked_softmax_xent(x, state["lm_head"], tokens[:, 1:],
+                                chunk=cfg.loss_chunk)
