@@ -6,26 +6,32 @@
 Phases, each fatal on failure:
   1. card: print the card's name and power limit; build the kernels from
      the sources in ``ray_tpu_torch/ops/csrc`` (one nvcc per source, in
-     parallel);
-  2. kernels against their plain versions on the card, in bf16 and f32, at
-     the shapes the main paths give them and a few more: the flash forward,
-     the dK/dV and dQ backward kernels, and gradients through the
-     ``FlashAttention`` autograd Function against autograd through the
-     plain attention;
+     parallel) and print ptxas's registers and spills for each
+     tensor-core kernel;
+  2. kernels against their plain versions on the card, in bf16 (the
+     tensor-core forward and dQ kernels, the scalar dK/dV kernel) and f32
+     (the scalar kernels), at the shapes the main paths give them and a
+     few more, and gradients through the ``FlashAttention`` autograd
+     Function against autograd through the plain attention;
   3. kernel, plain-version, bound and library (SDPA) times at the engine's
-     prefill shapes and at the trainer's attention shape;
+     prefill shapes and at the trainer's attention shape; the trainer-shape
+     times are read twice in the run, before the engine and after the
+     trainer;
   4. ``llama.apply`` at ``__graft_entry__.entry()``'s config: logits through
      the kernel against logits through the plain attention;
   5. the serving engine at full width (the serving model of ``bench.py``):
      every request streams its full token count, the forward kernel's
      launch counter grew during the run, and one prefill's first-token
      logits through the kernel agree with the same prefill through the
-     plain attention;
+     plain attention, and a profiled bucket-128 prefill runs the
+     tensor-core forward kernel once per layer and no scalar kernel;
   6. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
      12, seq 1024): the first step's loss and grad norm through the kernels
      agree with the plain attention's, the loss falls on a repeated batch,
-     each of the three kernels launches 12 times a step, and a few steps
-     are timed and profiled.
+     each of the three wrappers launches 12 times a step, and a few steps
+     are timed and profiled; the profiled step shows 12 launches of each
+     bf16 kernel (``BF16_KERNELS``) and none of the scalar forward or dQ
+     kernels.
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 where CUDA is missing or any phase fails.  Details go to
@@ -48,6 +54,16 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # cores, and HBM3 bandwidth.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+
+# The device kernels behind each wrapper, by the name the profiler shows
+# (a substring of the demangled name): bf16 runs the tensor-core kernels,
+# f32 the scalar ones; dK/dV is scalar in both dtypes.
+BF16_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_mma_kernel"}
+SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel")
+DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dkv": "scalar f32",
+          "flash_bwd_dq": "mma.sync bf16"}
 
 
 def card_line() -> str:
@@ -92,6 +108,30 @@ def device_events(fn, iters: int = 1):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def ptxas_report(log: str):
+    """{mangled kernel symbol: "registers, static shared memory, spills"}
+    from an ``nvcc -Xptxas -v`` log: each line of figures belongs to the
+    entry function named last before it."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1].strip("'")
+        elif name and ("registers" in line or "spill" in line):
+            info = line.split(":", 1)[-1].strip()
+            out[name] = f"{out[name]}; {info}" if name in out else info
+    return out
+
+
+def measured(ms: float):
+    """A profiler reading, or None where the profiled window held none of
+    the call's kernels (it has read 0 ms for a short SDPA call)."""
+    return ms if ms > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -333,7 +373,7 @@ def time_kernels(report):
             "sdpa": lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True, scale=scale),
         }
-        dev = {n: device_ms(fn) for n, fn in calls.items()}
+        dev = {n: measured(device_ms(fn)) for n, fn in calls.items()}
         wall = {n: time_ms(fn) for n, fn in calls.items()}
         ops, nbytes = attention_work(bh, s, s, d, True, 2)
         bms, by = bound_ms(ops, nbytes, "bfloat16")
@@ -347,8 +387,9 @@ def time_kernels(report):
                      "max_abs_err": float((out.float() - ref.float())
                                           .abs().max())})
         print(f"time flash_fwd bh{bh} s{s} d{d} bf16 causal, device ms per "
-              f"call: kernel {dev['kernel']:.4f}, plain {dev['plain']:.4f}, "
-              f"sdpa {dev['sdpa']:.4f}, bound {bms:.5f} ({by}); wall ms per "
+              f"call: kernel {fmt_ms(dev['kernel'])}, plain "
+              f"{fmt_ms(dev['plain'])}, sdpa {fmt_ms(dev['sdpa'])}, bound "
+              f"{bms:.5f} ({by}); wall ms per "
               f"call in a loop: kernel {wall['kernel']:.4f}, plain "
               f"{wall['plain']:.4f}, sdpa {wall['sdpa']:.4f}", flush=True)
     report["kernel_times"] = rows
@@ -362,11 +403,20 @@ def kernel_device_ms(fn, names, iters: int = 10):
     return {n: sum(t for k, t, _ in rows if n in k) / iters for n in names}
 
 
-def time_trainer_attention(report):
+def kernel_counts(rows, names):
+    """Launches of each kernel in ``names`` among profiled device events
+    (a name counts the events whose demangled name contains it)."""
+    return {n: sum(c for k, _, c in rows if n in k) for n in names}
+
+
+def time_trainer_attention(report, reading: int):
     """The three kernels at the trainer's attention shape (batch 12, 12
-    heads, seq 1024, head_dim 64, bf16, causal): device ms per call against
-    the plain versions, SDPA forward and SDPA backward under autograd (the
-    library yardsticks, timed only), and the bounds."""
+    heads, seq 1024, head_dim 64, bf16, causal): device ms per call of the
+    bf16 kernels (``BF16_KERNELS``, by name from the profiler) against the
+    plain versions, SDPA forward and SDPA backward under autograd (the
+    library yardsticks, timed only), and the bounds.  Run twice in one
+    script (``reading`` 1 and 2): a stand-alone kernel time moves by up to
+    16% between readings on this machine."""
     import torch
     import torch.nn.functional as F
 
@@ -384,15 +434,17 @@ def time_trainer_attention(report):
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               scale=scale)
 
+    fwd = kernel_device_ms(
+        lambda: attention.flash_forward(q, k, v, True, scale),
+        (BF16_KERNELS["flash_fwd"],), iters=20)
     bwd = kernel_device_ms(
         lambda: attention.flash_backward(q, k, v, out, lse, d_out, True,
                                          scale),
-        ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        (BF16_KERNELS["flash_bwd_dkv"], BF16_KERNELS["flash_bwd_dq"]))
     dev = {
-        "flash_fwd": device_ms(
-            lambda: attention.flash_forward(q, k, v, True, scale)),
-        "flash_bwd_dkv": bwd["flash_bwd_dkv_kernel"],
-        "flash_bwd_dq": bwd["flash_bwd_dq_kernel"],
+        "flash_fwd": fwd[BF16_KERNELS["flash_fwd"]],
+        "flash_bwd_dkv": bwd[BF16_KERNELS["flash_bwd_dkv"]],
+        "flash_bwd_dq": bwd[BF16_KERNELS["flash_bwd_dq"]],
         "plain_fwd": device_ms(
             lambda: attention.reference_attention(q, k, v, True, scale), 5),
         "plain_bwd": device_ms(
@@ -420,16 +472,24 @@ def time_trainer_attention(report):
         else:
             ops, nbytes = attention_bwd_work(name, bh, bh, s, s, d, True, 2)
         bms, by = bound_ms(ops, nbytes, "bfloat16")
+        for key in (name, plain):
+            if dev[key] <= 0:
+                raise SystemExit(f"the profiler saw no kernel of {key} at the "
+                                 f"trainer shape")
+        lib_ms = measured(dev[lib])
         rows[name] = {"ms": dev[name], "plain_ms": dev[plain],
-                      "library_ms": dev[lib], "bound_ms": bms,
+                      "library_ms": lib_ms, "bound_ms": bms,
                       "bound_by": by, "ops": ops, "bytes": nbytes,
-                      "max_abs_err": err}
-        print(f"time {name} trainer shape b{b} h{h} s{s} d{d} bf16 causal, "
-              f"device ms per call: kernel {dev[name]:.4f}, plain "
-              f"{dev[plain]:.4f} ({plain}), sdpa {dev[lib]:.4f} ({lib}), "
-              f"bound {bms:.5f} ({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB)"
-              f"; max abs err vs plain {err:.3e}", flush=True)
-    report["trainer_kernel_times"] = rows
+                      "tflops": ops / dev[name] / 1e9,
+                      "bound_share": bms / dev[name], "max_abs_err": err}
+        print(f"time #{reading} {name} ({BF16_KERNELS[name]}) trainer shape "
+              f"b{b} h{h} s{s} d{d} bf16 causal, device ms per call: kernel "
+              f"{dev[name]:.4f} ({ops / dev[name] / 1e9:.1f} TFLOP/s, "
+              f"{bms / dev[name]:.3f} of bound), plain {dev[plain]:.4f} "
+              f"({plain}), sdpa {fmt_ms(lib_ms)} ({lib}), bound {bms:.5f} "
+              f"({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB); max abs err vs "
+              f"plain {err:.3e}", flush=True)
+    report.setdefault("trainer_kernel_times", []).append(rows)
     return rows
 
 
@@ -631,13 +691,24 @@ def profile_steps(engine, cfg, ccfg, toks, rows, slots):
         ms = time_ms(fn, iters=10)
         rows_ = device_events(fn)
         busy = sum(r[1] for r in rows_)
-        out[name] = {"ms": ms, "device_ms": busy,
+        fwd = BF16_KERNELS["flash_fwd"]
+        fwd_ms = sum(t for k, t, _ in rows_ if fwd in k)
+        out[name] = {"ms": ms, "device_ms": busy, f"{fwd}_ms": fwd_ms,
+                     "kernel_launches": kernel_counts(
+                         rows_, (fwd, *SCALAR_KERNELS)),
                      "top": [{"kernel": k[:90], "ms": t, "count": c}
                              for k, t, c in rows_[:8]]}
         print(f"step {name}: {ms:.3f} ms per call, device busy "
-              f"{busy:.3f} ms; top: " + "; ".join(
+              f"{busy:.3f} ms ({fwd} {fwd_ms:.4f} ms, launches "
+              f"{out[name]['kernel_launches']}); top: " + "; ".join(
                   f"{k[:40]} {t:.3f} ms x{c}" for k, t, c in rows_[:4]),
               flush=True)
+    got = out["prefill_128"]["kernel_launches"]
+    if got[BF16_KERNELS["flash_fwd"]] != cfg.n_layers or any(
+            got[k] for k in SCALAR_KERNELS):
+        raise SystemExit(f"a bucket-128 prefill launched {got}: want "
+                         f"{cfg.n_layers} tensor-core forwards and no scalar "
+                         f"kernel")
     return out
 
 
@@ -760,10 +831,21 @@ def run_trainer(report):
     # where one step's device time goes (outside the counted run)
     rows = device_events(lambda: step(state, tokens))
     busy = sum(r[1] for r in rows)
+    profiled = kernel_counts(rows, (*BF16_KERNELS.values(), *SCALAR_KERNELS))
+    attn_ms = {k: sum(t for name, t, _ in rows if k in name)
+               for k in BF16_KERNELS.values()}
     print(f"trainer step device busy {busy:.3f} ms of {step_ms:.3f} ms "
-          f"(idle share {1 - busy / step_ms:.3f}); top: " + "; ".join(
+          f"(idle share {1 - busy / step_ms:.3f}); kernel launches in the "
+          f"profiled step {profiled}, their device ms "
+          + ", ".join(f"{k} {t:.3f}" for k, t in attn_ms.items())
+          + "; top: " + "; ".join(
               f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:8]),
           flush=True)
+    want_profiled = {**{k: cfg.n_layers for k in BF16_KERNELS.values()},
+                     **{k: 0 for k in SCALAR_KERNELS}}
+    if profiled != want_profiled:
+        raise SystemExit(f"the profiled trainer step launched {profiled}, "
+                         f"want {want_profiled}")
     report["trainer"] = {
         "n_params": n_params, "batch": BATCH, "seq": SEQ, "steps": n_steps,
         "first_step": first, "repeated_batch_losses": losses,
@@ -771,7 +853,9 @@ def run_trainer(report):
         "tokens_per_s": tok_s, "model_tflops": tflops,
         "peak_share_989": tflops / 989, "max_memory_allocated": peak_bytes,
         "final_loss": final_loss, "launches": launches,
-        "device_busy_ms": busy,
+        "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+        "profiled_kernel_launches": profiled,
+        "profiled_kernel_ms": attn_ms,
         "top": [{"kernel": k[:90], "ms": t, "count": c}
                 for k, t, c in rows[:12]]}
     return launches
@@ -795,21 +879,25 @@ def main() -> int:
     t0 = time.monotonic()
     paths = _build.build(["flash_fwd", "flash_bwd"])
     report["build_s"] = time.monotonic() - t0
+    print(f"built {sorted(paths)} in {report['build_s']:.1f} s", flush=True)
     for name, path in paths.items():
         log = path.with_name(path.name + ".log")
-        info = [ln.strip() for ln in log.read_text().splitlines()
-                if "registers" in ln or "spill" in ln] if log.exists() else []
+        info = ptxas_report(log.read_text()) if log.exists() else {}
         report[f"ptxas_{name}"] = info
-        print(f"built {name} in {report['build_s']:.1f} s: "
-              + " | ".join(info), flush=True)
+        # the tensor-core kernels' shared memory is dynamic, which ptxas
+        # does not see (the .cu files state its size)
+        for kernel, line in info.items():
+            if "mma" in kernel:
+                print(f"ptxas {kernel}: {line}", flush=True)
 
     check_kernels(report)
     check_backward(report)
     time_kernels(report)
-    trainer_times = time_trainer_attention(report)
+    first = time_trainer_attention(report, 1)
     check_apply(report)
     engine_launches = run_engine(report)
     trainer_launches = run_trainer(report)
+    second = time_trainer_attention(report, 2)
 
     # times at the trainer's shape; flash_fwd's launches are its counted
     # engine run plus its counted trainer run
@@ -820,7 +908,7 @@ def main() -> int:
                                 "ray_tpu/ops/attention.py:303")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        row = trainer_times[name]
+        row = first[name]
         entry = {"name": name, "route": "cuda",
                  "source": f"ray_tpu_torch/ops/csrc/{src}",
                  "replaces": replaces,
@@ -828,7 +916,11 @@ def main() -> int:
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
-                 "library_ms": row["library_ms"]}
+                 "library_ms": row["library_ms"],
+                 "design": DESIGN[name],
+                 "ms_readings": [row["ms"], second[name]["ms"]],
+                 "library_ms_readings": [row["library_ms"],
+                                         second[name]["library_ms"]]}
         if name == "flash_fwd":
             entry["launches"] += engine_launches
             entry["launches_by_path"] = {

@@ -12,7 +12,9 @@ which is the VJP of ``repeat_kv_heads``.
 ``flash_forward`` and ``flash_backward`` send tensors that lie on the CPU
 to the plain versions ``reference_attention`` and
 ``reference_attention_backward``; CUDA tensors launch the kernels in
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` or raise.
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` or raise.  The C entry
+points pick the kernel by dtype: bf16 takes the tensor-core (``mma.sync``)
+forward and dQ kernels, f32 the scalar f32 ones; dK/dV is scalar in both.
 ``FlashAttention`` joins the two for autograd, as ``jax.custom_vjp`` does
 in the JAX package.
 """
@@ -111,9 +113,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-attention forward on ``(bh, seq, d)``: returns (out, lse).
 
     CPU tensors take ``reference_attention``.  CUDA tensors launch the
-    Hopper kernel (bf16 or f32, head_dim 32/64/128, contiguous) and raise
-    on anything it does not take; ``flash_forward.launches`` counts the
-    launches."""
+    Hopper kernel (bf16 on the tensor cores or f32 scalar, head_dim
+    32/64/128, contiguous) and raise on anything it does not take;
+    ``flash_forward.launches`` counts the launches."""
     _check_packed(q, k, v)
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal, sm_scale)

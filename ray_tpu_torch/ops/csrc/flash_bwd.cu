@@ -27,10 +27,24 @@
 // pass does 8 * d operations (two dot products, two rank-1 updates) and the
 // dQ pass 6 * d; each moves about 8 * d bytes per row in bf16.  For the
 // trainer's causal seq 1024 that is well above the H100's ~295 op/byte
-// ridge, so the least time is set by the bf16 tensor cores.  This first
-// version reaches neither limit: it is scalar f32 FMA, like flash_fwd.cu,
-// which keeps the float32 path within summation-order error of the plain
-// version.  What the design does:
+// ridge, so the least time is set by the bf16 tensor cores.
+//
+// dQ in bf16 -> `flash_bwd_dq_mma_kernel`, on the tensor cores, built from
+// the forward's tile mechanics (flash_mma.cuh): one block of 4 warps per
+// (bh, 64-row Q tile), heavy causal tiles first; Q and dO staged once by
+// cp.async and read as A fragments; K/V tiles of 64 rows in a 2-stage bf16
+// cp.async ring up to the diagonal tile; per tile S = Q K^T and
+// dP = dO V^T (K and V as plain-ldmatrix B operands), p = exp(S * scale -
+// lse) and dS = p * (dP - delta) * scale in f32 with lse and delta per row
+// in registers, then dQ += dS K with dS rounded to bf16 in registers and K
+// read by ldmatrix.trans.  dQ stays f32 in registers and is rounded once.
+//
+// Everything else -> the scalar f32 FMA kernels below, like flash_fwd.cu's
+// float32 kernel, which keep the float32 path within summation-order error
+// of the plain version: dK/dV in both dtypes (its tensor-core redesign is a
+// later step) and dQ in float32.  The dtype picks the kernel in
+// rtt_flash_bwd_dq; neither is a fallback for the other.  What the scalar
+// design does:
 //   * dK/dV: one block per (bh_kv, 64-row KV tile), 4 threads per KV row;
 //     each thread keeps its quarter of the K and V rows and of the dK and dV
 //     accumulators in registers for the whole sweep over the group's query
@@ -45,14 +59,15 @@
 //     shuffles among the 4 adjacent lanes of one row only;
 //   * staged rows past seq are zero-filled and masked or out-of-range pairs
 //     get p = 0 exactly, so they contribute exactly 0 (no garbage * 0 = NaN).
-// Static shared memory stays under 33 KB for d <= 128.  Tensor-core
-// products (mma.sync / wgmma), TMA staging and warp specialisation are the
-// next steps for speed.
+// Static shared memory stays under 33 KB for d <= 128.  wgmma, TMA staging
+// and warp specialisation are the next steps for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -230,12 +245,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_row<T, D>(dv + kv_off, dv_acc, part);
 }
 
-template <typename T, int D, bool kCausal>
+// float32 only: bf16 takes flash_bwd_dq_mma_kernel.
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ d_out,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ d_out,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int group, int seq_q, int seq_k, float sm_scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   static_assert(2 * kStageRows * D * sizeof(float) <= 48 * 1024,
@@ -253,15 +270,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[D / 4], dor[D / 4], dq_acc[D / 4];
   const size_t q_off = ((size_t)bh * seq_q + (row_ok ? row : 0)) * D;
-  load_row<T, D>(qr, q + q_off, row_ok, part);
-  load_row<T, D>(dor, d_out + q_off, row_ok, part);
+  load_row<float, D>(qr, q + q_off, row_ok, part);
+  load_row<float, D>(dor, d_out + q_off, row_ok, part);
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) dq_acc[i] = 0.f;
   const float row_lse = row_ok ? lse[(size_t)bh * seq_q + row] : 0.f;
   const float row_delta = row_ok ? delta[(size_t)bh * seq_q + row] : 0.f;
 
-  const T* k_base = k + (size_t)kv_bh * seq_k * D;
-  const T* v_base = v + (size_t)kv_bh * seq_k * D;
+  const float* k_base = k + (size_t)kv_bh * seq_k * D;
+  const float* v_base = v + (size_t)kv_bh * seq_k * D;
   int n_tiles = (seq_k + kStageRows - 1) / kStageRows;
   if (kCausal) {
     // only tiles at or before this block's last query row take part
@@ -271,7 +288,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * kStageRows;
     __syncthreads();  // every thread is done with the previous tile
-    stage_tiles<T, D>(k_tile, v_tile, k_base, v_base, kv0, seq_k, tid);
+    stage_tiles<float, D>(k_tile, v_tile, k_base, v_base, kv0, seq_k, tid);
     __syncthreads();
 
     for (int j = 0; j < kStageRows; ++j) {
@@ -286,7 +303,190 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_ok) return;
-  store_row<T, D>(dq + q_off, dq_acc, part);
+  store_row<float, D>(dq + q_off, dq_acc, part);
+}
+
+// Shared memory of the bf16 dQ kernel: the Q and dO tiles, then a 2-stage
+// ring of (K tile, V tile); 30,720 / 55,296 / 104,448 bytes at D = 32 / 64 /
+// 128.
+template <int D>
+constexpr int dq_mma_smem_bytes() {
+  return 6 * rtt_mma::Tile<D>::kBytes;
+}
+
+// bf16 dQ on the tensor cores (see the note at the top and flash_mma.cuh).
+// Q and dO stay in A fragments for the whole sweep at D <= 64; at D = 128
+// they would take 64 of the ~190 registers a thread needs, so there they
+// are read from their shared-memory tiles for each product instead.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(rtt_mma::kThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ d_out,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int group, int seq_q,
+                        int seq_k, float sm_scale) {
+  using namespace rtt_mma;
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr bool kFragsInRegs = D <= 64;
+  constexpr int kSlabs = kFragsInRegs ? D / 16 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + Tile<D>::kElems;
+  bf16* ring = do_s + Tile<D>::kElems;  // stage s: K at 2s, V at 2s + 1
+
+  const int bh = blockIdx.x;
+  const int kv_bh = bh / group;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heavy causal tiles first
+  const int q0 = q_tile * kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // this lane's rows: a, a+8
+  const float scale_log2 = sm_scale * kLog2e;
+
+  const bf16* k_base = k + (size_t)kv_bh * seq_k * D;
+  const bf16* v_base = v + (size_t)kv_bh * seq_k * D;
+  int n_tiles = (seq_k + kRows - 1) / kRows;
+  if (kCausal) n_tiles = min(n_tiles, q_tile + 1);
+
+  load_tile<D>(q_s, q + (size_t)bh * seq_q * D, q0, seq_q, tid);
+  load_tile<D>(do_s, d_out + (size_t)bh * seq_q * D, q0, seq_q, tid);
+  if (n_tiles > 0) {
+    load_tile<D>(ring, k_base, 0, seq_k, tid);
+    load_tile<D>(ring + Tile<D>::kElems, v_base, 0, seq_k, tid);
+  }
+  cp_async_commit();
+
+  // per-row lse (log2 domain) and delta; a row past seq_q gets lse = +1e30,
+  // so its p is exactly 0, as is that of a row that saw no column
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    const bool ok = row < seq_q;
+    lse2[i] = (ok ? lse[(size_t)bh * seq_q + row] : -kNegInf) * kLog2e;
+    dlt[i] = ok ? delta[(size_t)bh * seq_q + row] : 0.f;
+  }
+
+  uint32_t qf[kSlabs][4], dof[kSlabs][4];  // A fragments kept (D <= 64)
+  float acc[D / 8][4];                     // dQ, f32, rows a and a + 8
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+  const uint32_t q_u = smem_u32(q_s), do_u = smem_u32(do_s);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {  // prefetch tile j + 1 into the other stage
+      bf16* st = ring + 2 * ((j + 1) & 1) * Tile<D>::kElems;
+      load_tile<D>(st, k_base, (j + 1) * kRows, seq_k, tid);
+      load_tile<D>(st + Tile<D>::kElems, v_base, (j + 1) * kRows, seq_k, tid);
+    }
+    cp_async_commit();   // possibly empty: keeps one group per iteration
+    cp_async_wait<1>();  // tile j (and Q, dO) landed for this thread...
+    __syncthreads();     // ...and for every thread
+    if (kFragsInRegs && j == 0) {  // Q and dO landed with tile 0
+#pragma unroll
+      for (int kk = 0; kk < kSlabs; ++kk) {
+        load_a<D>(qf[kk], q_u, warp * 16, kk * 16, lane);
+        load_a<D>(dof[kk], do_u, warp * 16, kk * 16, lane);
+      }
+    }
+    const uint32_t k_s = smem_u32(ring + 2 * (j & 1) * Tile<D>::kElems);
+    const uint32_t v_s = k_s + Tile<D>::kBytes;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp each
+    float s[kKeyTiles][4], dp[kKeyTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (kFragsInRegs) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          qa[r] = qf[kk][r];
+          da[r] = dof[kk][r];
+        }
+      } else {
+        load_a<D>(qa, q_u, warp * 16, kk * 16, lane);
+        load_a<D>(da, do_u, warp * 16, kk * 16, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < kKeyTiles / 2; ++np) {
+        uint32_t b[4];
+        load_b_keys<D>(b, k_s, np * 16, kk * 16, lane);
+        mma(s[2 * np], qa, b[0], b[1]);
+        mma(s[2 * np + 1], qa, b[2], b[3]);
+        load_b_keys<D>(b, v_s, np * 16, kk * 16, lane);
+        mma(dp[2 * np], da, b[0], b[1]);
+        mma(dp[2 * np + 1], da, b[2], b[3]);
+      }
+    }
+
+    // p = exp(S * scale - lse), exactly 0 where masked; then
+    // dS = p * (dP - delta) * scale in f32, kept in s
+    const int kv0 = j * kRows;
+    const bool edge = kv0 + kRows > seq_k || (kCausal && kv0 + kRows - 1 > q0);
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]);
+        if (edge && masked<kCausal>(kv0, nt, e, t, row_a, seq_k)) p = 0.f;
+        s[nt][e] = p * (dp[nt][e] - dlt[e >> 1]) * sm_scale;
+      }
+    }
+
+    // dQ += dS K, dS rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
+      uint32_t a[4];
+      pack_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        load_b_dims<D>(b, k_s, kk * 16, np * 16, lane);
+        mma(acc[2 * np], a, b[0], b[1]);
+        mma(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1 before refill
+  }
+
+  cp_async_wait<0>();  // no copy outlives the block (seq_k == 0)
+  store_rows<D>(dq + (size_t)bh * seq_q * D, acc, row_a, seq_q, t, 1.f, 1.f);
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* d_out, const float* lse,
+                          const float* delta, void* dq, int bh, int group,
+                          int seq_q, int seq_k, bool causal, float sm_scale,
+                          cudaStream_t stream) {
+  const int tiles = (seq_q + rtt_mma::kRows - 1) / rtt_mma::kRows;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(bh, tiles);
+  constexpr int smem = dq_mma_smem_bytes<D>();
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* dop = static_cast<const __nv_bfloat16*>(d_out);
+  auto* dqp = static_cast<__nv_bfloat16*>(dq);
+  auto kernel = causal ? flash_bwd_dq_mma_kernel<D, true>
+                       : flash_bwd_dq_mma_kernel<D, false>;
+  const cudaError_t rc = rtt_mma::allow_smem(kernel, smem);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<grid, rtt_mma::kThreads, smem, stream>>>(
+      qp, kp, vp, dop, lse, delta, dqp, group, seq_q, seq_k, sm_scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -312,22 +512,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* d_out, const float* lse, const float* delta,
                       void* dq, int bh, int group, int seq_q, int seq_k,
                       bool causal, float sm_scale, cudaStream_t stream) {
   const dim3 grid((seq_q + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(d_out);
-  T* dqp = static_cast<T*>(dq);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(d_out);
+  float* dqp = static_cast<float*>(dq);
   if (causal) {
-    flash_bwd_dq_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_dq_kernel<D, true><<<grid, kThreads, 0, stream>>>(
         qp, kp, vp, dop, lse, delta, dqp, group, seq_q, seq_k, sm_scale);
   } else {
-    flash_bwd_dq_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_dq_kernel<D, false><<<grid, kThreads, 0, stream>>>(
         qp, kp, vp, dop, lse, delta, dqp, group, seq_q, seq_k, sm_scale);
   }
   return cudaGetLastError();
@@ -394,9 +594,26 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 void* stream) {
   const int rc = check_shape(bh, bh_kv, seq_q, seq_k, seq_q);
   if (rc != 0) return rc;
-  RTT_DISPATCH(launch_dq, dtype, head_dim, q, k, v, d_out,
-               static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, bh, bh / bh_kv, seq_q,
-               seq_k, causal != 0, sm_scale,
-               static_cast<cudaStream_t>(stream));
+  const float* lse_p = static_cast<const float*>(lse);
+  const float* delta_p = static_cast<const float*>(delta);
+  const int group = bh / bh_kv;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
+#define RTT_DQ_ARGS \
+  q, k, v, d_out, lse_p, delta_p, dq, bh, group, seq_q, seq_k, c, sm_scale, s
+  if (dtype == 0) {  // float32: the scalar kernel
+    switch (head_dim) {
+      case 32: return (int)launch_dq<32>(RTT_DQ_ARGS);
+      case 64: return (int)launch_dq<64>(RTT_DQ_ARGS);
+      case 128: return (int)launch_dq<128>(RTT_DQ_ARGS);
+    }
+  } else if (dtype == 1) {  // bfloat16: the tensor-core kernel
+    switch (head_dim) {
+      case 32: return (int)launch_dq_mma<32>(RTT_DQ_ARGS);
+      case 64: return (int)launch_dq_mma<64>(RTT_DQ_ARGS);
+      case 128: return (int)launch_dq_mma<128>(RTT_DQ_ARGS);
+    }
+  }
+#undef RTT_DQ_ARGS
+  return (int)cudaErrorInvalidValue;
 }

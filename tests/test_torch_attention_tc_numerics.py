@@ -1,0 +1,202 @@
+"""The rounding model of the tensor-core flash kernels, held to the JAX
+package's Pallas kernels and to the port's plain versions on the CPU.
+
+``flash_fwd_mma_kernel`` and ``flash_bwd_dq_mma_kernel``
+(``ray_tpu_torch/ops/csrc``) run only on the card.  What they do to the
+numbers is emulated here in plain torch, at their own tile sizes and
+rounding points: bf16 operands with f32 products; the scores scaled in f32
+after the product, in the log2 domain of ``exp2f``; an online softmax over
+64-column key tiles for 64-row query tiles, P rounded to bf16 before P·V
+while l sums the f32 p; dS = p(dP − δ)·scale rounded to bf16 before dS·K;
+out and dQ rounded to bf16 once.  The emulation must meet exactly the
+tolerances ``chip_smoke.py`` holds the kernels to on the card
+(``out_tolerance``, ``LSE_TOL``, ``grad_tolerance``), against the Pallas
+kernels in interpret mode and against ``reference_attention`` /
+``reference_attention_backward``, on the same numpy-seeded bf16 inputs.
+A tolerance that would reject a correct tensor-core kernel fails here,
+before any time on the card.
+
+Nothing ties the emulation to the ``.cu`` sources: a change to the
+kernels' tile sizes or rounding points (``flash_mma.cuh``,
+``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``) must change
+``emulate_forward`` / ``emulate_dq`` with it.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import chip_smoke
+from ray_tpu.ops import attention as jattn
+from ray_tpu_torch.ops import attention as tattn
+
+TILE = 64  # query rows per block = key rows per tile (flash_mma.cuh kRows)
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+# (batch, heads, kv_heads, seq_q, seq_k, head_dim, causal, jax_block)
+CASES = {
+    "gqa_8_4_s256": (2, 8, 4, 256, 256, 64, True, 128),
+    # one JAX block covers a ragged sequence: the Pallas backward clamps
+    # the last block of a sequence that is not a multiple of the block
+    "ragged_100_causal": (1, 4, 2, 100, 100, 32, True, 256),
+    "ragged_77x130_full": (2, 4, 1, 77, 130, 64, False, 256),
+}
+
+
+def _f32(x):
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _inputs(b, h, hkv, sq, sk, d, seed):
+    """bf16 q, k, v, dO (bh, seq, d) from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    shapes = ((b * h, sq, d), (b * hkv, sk, d), (b * hkv, sk, d),
+              (b * h, sq, d))
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to(torch.bfloat16) for s in shapes]
+
+
+def _tiles(seq_k, q0, causal):
+    """The key tiles a 64-row query block at q0 visits: up to the
+    diagonal tile when causal."""
+    n = -(-seq_k // TILE)
+    if causal:
+        n = min(n, q0 // TILE + 1)
+    return [(j * TILE, min(j * TILE + TILE, seq_k)) for j in range(n)]
+
+
+def _mask(q0, q1, c0, c1, causal):
+    rows = torch.arange(q0, q1)[:, None]
+    cols = torch.arange(c0, c1)[None, :]
+    return (cols > rows) if causal else torch.zeros(q1 - q0, c1 - c0,
+                                                    dtype=torch.bool)
+
+
+def emulate_forward(q, k, v, causal, scale):
+    """``flash_fwd_mma_kernel``'s arithmetic: (out bf16, lse f32)."""
+    group = q.shape[0] // k.shape[0]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(group, dim=0) for x in (k, v))
+    bh, seq_q, d = q.shape
+    scale_log2 = _f32(scale) * _f32(LOG2E)
+    out = torch.empty(bh, seq_q, d)
+    lse = torch.empty(bh, seq_q)
+    for q0 in range(0, seq_q, TILE):
+        q1 = min(q0 + TILE, seq_q)
+        m = torch.full((bh, q1 - q0), NEG_INF)
+        l = torch.zeros(bh, q1 - q0)
+        o = torch.zeros(bh, q1 - q0, d)
+        for c0, c1 in _tiles(k.shape[1], q0, causal):
+            masked = _mask(q0, q1, c0, c1, causal)
+            s = (qf[:, q0:q1] @ kf[:, c0:c1].transpose(1, 2)) * scale_log2
+            s = s.masked_fill(masked, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None]).masked_fill(masked, 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + p.to(torch.bfloat16).float() \
+                @ vf[:, c0:c1]
+            m = m_new
+        inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
+        out[:, q0:q1] = o * inv[..., None]
+        lse[:, q0:q1] = torch.where(l == 0, torch.full_like(l, -NEG_INF),
+                                    m * _f32(LN2) + torch.log(l))
+    return out.to(q.dtype), lse
+
+
+def emulate_dq(q, k, v, d_out, lse, delta, causal, scale):
+    """``flash_bwd_dq_mma_kernel``'s arithmetic: dq in bf16."""
+    group = q.shape[0] // k.shape[0]
+    qf, dof = q.float(), d_out.float()
+    kf, vf = (x.float().repeat_interleave(group, dim=0) for x in (k, v))
+    scale_log2 = _f32(scale) * _f32(LOG2E)
+    dq = torch.zeros(q.shape)
+    for q0 in range(0, q.shape[1], TILE):
+        q1 = min(q0 + TILE, q.shape[1])
+        lse2 = (lse[:, q0:q1] * _f32(LOG2E))[..., None]
+        dlt = delta[:, q0:q1, None]
+        for c0, c1 in _tiles(k.shape[1], q0, causal):
+            s = qf[:, q0:q1] @ kf[:, c0:c1].transpose(1, 2)
+            dp = dof[:, q0:q1] @ vf[:, c0:c1].transpose(1, 2)
+            p = torch.exp2(s * scale_log2 - lse2).masked_fill(
+                _mask(q0, q1, c0, c1, causal), 0.0)
+            ds = p * (dp - dlt) * _f32(scale)
+            dq[:, q0:q1] += ds.to(torch.bfloat16).float() @ kf[:, c0:c1]
+    return dq.to(q.dtype)
+
+
+def _pallas(q, k, v, d_out, causal, scale, block):
+    """The JAX package's forward and dQ (Pallas, interpret mode) on KV heads
+    repeated as its public API repeats them: (out, lse, dq) as torch."""
+    group = q.shape[0] // k.shape[0]
+
+    def j(x, rep=1):
+        return jnp.asarray(x.float().repeat_interleave(rep, dim=0).numpy(),
+                           jnp.bfloat16)
+
+    jq, jk, jv, jdo = j(q), j(k, group), j(v, group), j(d_out)
+    out, lse = jattn._flash_forward(jq, jk, jv, causal=causal, sm_scale=scale,
+                                    block_q=block, block_k=block,
+                                    interpret=True)
+    dq, _, _ = jattn._flash_backward(jq, jk, jv, out, lse, jdo, causal=causal,
+                                     sm_scale=scale, block_q=block,
+                                     block_k=block, interpret=True)
+
+    def t(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32)))
+
+    return t(out).to(torch.bfloat16), t(lse)[..., 0], t(dq).to(torch.bfloat16)
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tensor_core_rounding_meets_chip_tolerances(case):
+    b, h, hkv, sq, sk, d, causal, block = CASES[case]
+    q, k, v, d_out = _inputs(b, h, hkv, sq, sk, d, seed=7)
+    scale = 1.0 / math.sqrt(d)
+    j_out, j_lse, j_dq = _pallas(q, k, v, d_out, causal, scale, block)
+    p_out, p_lse = tattn.reference_attention(q, k, v, causal, scale)
+
+    out, lse = emulate_forward(q, k, v, causal, scale)
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(lse).all())
+    for ref_out, ref_lse in ((j_out, j_lse), (p_out, p_lse)):
+        assert _err(out, ref_out) <= chip_smoke.out_tolerance(
+            torch.bfloat16, ref_out)
+        assert _err(lse, ref_lse) <= chip_smoke.LSE_TOL
+
+    # dQ from the JAX forward's out and lse, as the Pallas backward takes
+    # them; delta = rowsum(dO * O) in f32 as both packages compute it
+    delta = (d_out.float() * j_out.float()).sum(dim=-1)
+    dq = emulate_dq(q, k, v, d_out, j_lse, delta, causal, scale)
+    assert _err(dq, j_dq) <= chip_smoke.grad_tolerance(torch.bfloat16, j_dq)
+    # and as chip_smoke.py checks the kernel: against the plain backward
+    # on the same out and lse
+    p_dq, _, _ = tattn.reference_attention_backward(
+        q, k, v, j_out, j_lse, d_out, causal, scale)
+    assert _err(dq, p_dq) <= chip_smoke.grad_tolerance(torch.bfloat16, p_dq)
+
+
+def test_empty_and_unseen_rows_match_the_plain_versions():
+    """A row that sees no key gets out = 0 and lse = +1e30, and a row with
+    lse = +1e30 gets dQ = 0, in the emulation as in the kernels and the
+    plain versions."""
+    q, _, _, d_out = _inputs(1, 2, 1, 5, 1, 32, seed=8)
+    k = torch.zeros(1, 0, 32, dtype=torch.bfloat16)
+    out, lse = emulate_forward(q, k, k, False, 0.1)
+    ref_out, ref_lse = tattn.reference_attention(q, k, k, False, 0.1)
+    assert torch.equal(out, ref_out) and torch.equal(out, torch.zeros_like(q))
+    assert torch.equal(lse, ref_lse) and bool((lse == 1e30).all())
+
+    q, k, v, d_out = _inputs(1, 2, 1, 70, 70, 32, seed=9)
+    lse = torch.full((2, 70), 1e30)
+    dq = emulate_dq(q, k, v, d_out, lse, torch.ones(2, 70), True, 0.1)
+    assert torch.equal(dq, torch.zeros_like(q))

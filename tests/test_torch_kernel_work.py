@@ -1,0 +1,87 @@
+"""The work counts behind ``chip_smoke.py``'s kernel bounds.
+
+``bound_ms`` in the kernels' JSON line ranks every later kernel PR, so
+``_pairs``, ``attention_work`` and ``attention_bwd_work`` are held here to
+counts taken by brute force: the unmasked (query, key) pairs of an explicit
+top-left causal or full mask, and the bytes of the tensors each kernel
+reads once and writes once.  ``chip_smoke`` imports no torch at its top
+level, so importing it here builds and launches nothing.
+"""
+
+import numpy as np
+import pytest
+
+import chip_smoke
+
+# (seq_q, seq_k, causal): square, ragged and non-square, both masks
+SHAPES = [(1, 1, True), (5, 5, True), (64, 64, True), (100, 100, True),
+          (77, 130, True), (130, 77, True), (77, 130, False),
+          (128, 128, False)]
+
+
+def _mask_pairs(sq, sk, causal):
+    """Unmasked pairs of one head from the mask itself: row >= col."""
+    mask = np.ones((sq, sk), dtype=bool)
+    if causal:
+        mask = np.arange(sq)[:, None] >= np.arange(sk)[None, :]
+    return int(mask.sum())
+
+
+def _nbytes(*shapes_and_sizes):
+    return sum(int(np.prod(shape)) * size for shape, size in shapes_and_sizes)
+
+
+@pytest.mark.parametrize("sq,sk,causal", SHAPES)
+def test_pairs_match_the_mask(sq, sk, causal):
+    assert chip_smoke._pairs(sq, sk, causal) == _mask_pairs(sq, sk, causal)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("sq,sk,causal", SHAPES)
+def test_forward_work(sq, sk, causal, itemsize):
+    """4·d operations per unmasked pair (q·k and p·v, a multiply and an
+    add each); q, k, v read once, out and the f32 lse written once."""
+    bh, d = 6, 32
+    ops, nbytes = chip_smoke.attention_work(bh, sq, sk, d, causal, itemsize)
+    assert ops == 4 * d * bh * _mask_pairs(sq, sk, causal)
+    assert nbytes == _nbytes(((bh, sq, d), itemsize), ((bh, sk, d), itemsize),
+                             ((bh, sk, d), itemsize), ((bh, sq, d), itemsize),
+                             ((bh, sq), 4))
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dkv", "flash_bwd_dq"])
+@pytest.mark.parametrize("sq,sk,causal", SHAPES)
+def test_backward_work(kernel, sq, sk, causal):
+    """dK/dV: 8·d operations per pair (q·k, dO·v, dV += p dO, dK += dS q);
+    dQ: 6·d (q·k, dO·v, dQ += dS k).  Both read q, dO (bh heads), k, v
+    (bh_kv heads) and the f32 lse and delta once; dK/dV writes dk and dv,
+    dQ writes dq."""
+    bh, bh_kv, d, itemsize = 8, 4, 64, 2
+    ops, nbytes = chip_smoke.attention_bwd_work(kernel, bh, bh_kv, sq, sk, d,
+                                                causal, itemsize)
+    per_pair = {"flash_bwd_dkv": 8, "flash_bwd_dq": 6}[kernel]
+    assert ops == per_pair * d * bh * _mask_pairs(sq, sk, causal)
+    reads = [((bh, sq, d), itemsize), ((bh, sq, d), itemsize),
+             ((bh_kv, sk, d), itemsize), ((bh_kv, sk, d), itemsize),
+             ((bh, sq), 4), ((bh, sq), 4)]
+    writes = ([((bh_kv, sk, d), itemsize)] * 2 if kernel == "flash_bwd_dkv"
+              else [((bh, sq, d), itemsize)])
+    assert nbytes == _nbytes(*reads, *writes)
+
+
+def test_trainer_shape_bounds():
+    """The trainer's attention shape (b 12, h 12, s 1024, d 64, bf16,
+    causal): the counts and bounds PERF.md's kernel table states."""
+    bh, s, d = 144, 1024, 64
+    pairs = s * (s + 1) // 2  # 524,800 per head
+    ops, nbytes = chip_smoke.attention_work(bh, s, s, d, True, 2)
+    assert (ops, nbytes) == (4 * d * pairs * bh, 76_087_296)
+    assert ops == 19_346_227_200
+    assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == "bytes"
+    for kernel, want in (("flash_bwd_dkv", 38_692_454_400),
+                         ("flash_bwd_dq", 29_019_340_800)):
+        ops, nbytes = chip_smoke.attention_bwd_work(kernel, bh, bh, s, s, d,
+                                                    True, 2)
+        assert ops == want
+        assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == \
+            "operations"
