@@ -9,10 +9,10 @@ Phases, each fatal on failure:
      parallel) and print ptxas's registers and spills for each
      tensor-core kernel;
   2. kernels against their plain versions on the card, in bf16 (the
-     tensor-core forward and dQ kernels, the scalar dK/dV kernel) and f32
-     (the scalar kernels), at the shapes the main paths give them and a
-     few more, and gradients through the ``FlashAttention`` autograd
-     Function against autograd through the plain attention;
+     tensor-core forward, dK/dV and dQ kernels) and f32 (the scalar
+     kernels), at the shapes the main paths give them and a few more, and
+     gradients through the ``FlashAttention`` autograd Function against
+     autograd through the plain attention;
   3. kernel, plain-version, bound and library (SDPA) times at the engine's
      prefill shapes and at the trainer's attention shape; the trainer-shape
      times are read twice in the run, before the engine and after the
@@ -30,10 +30,11 @@ Phases, each fatal on failure:
      agree with the plain attention's, the loss falls on a repeated batch,
      each of the three wrappers launches 12 times a step, and a few steps
      are timed and profiled; the profiled step shows 12 launches of each
-     bf16 kernel (``BF16_KERNELS``) and none of the scalar forward or dQ
-     kernels.
-The line before the last is the kernels' JSON; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+     tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
+     (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel.
+The last three lines are the kernels' JSON, the card's name and power
+limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing no result,
 where CUDA is missing or any phase fails.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -57,12 +58,14 @@ PEAK_BYTES = 3.35e12
 
 # The device kernels behind each wrapper, by the name the profiler shows
 # (a substring of the demangled name): bf16 runs the tensor-core kernels,
-# f32 the scalar ones; dK/dV is scalar in both dtypes.
+# f32 the scalar ones.  No scalar name may be a substring of a tensor-core
+# name.
 BF16_KERNELS = {"flash_fwd": "flash_fwd_mma_kernel",
-                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_mma_kernel",
                 "flash_bwd_dq": "flash_bwd_dq_mma_kernel"}
-SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel")
-DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dkv": "scalar f32",
+SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                  "flash_bwd_dq_kernel")
+DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dkv": "mma.sync bf16",
           "flash_bwd_dq": "mma.sync bf16"}
 
 
@@ -277,6 +280,9 @@ BWD_CASES = [  # (name, b, h, hkv, sq, sk, d, causal)
     ("llama3_8b", 1, 32, 8, 2048, 2048, 128, False),
     ("ragged", 1, 4, 2, 100, 100, 32, True),
     ("ragged", 2, 4, 1, 77, 130, 64, False),
+    # causal with seq_q < seq_k: KV tiles no query sees (dK, dV exactly 0)
+    # and a Q tile partly past seq_q
+    ("ragged_causal_wide", 1, 4, 2, 77, 130, 64, True),
 ]
 
 
@@ -313,7 +319,7 @@ def check_backward(report):
                 row["ok"] &= (err <= tol
                               and bool(torch.isfinite(a.float()).all()))
             rows.append(row)
-            print(f"backward-vs-plain {name:10s} b{b} h{h}/{hkv} s{sq}x{sk} "
+            print(f"backward-vs-plain {name:18s} b{b} h{h}/{hkv} s{sq}x{sk} "
                   f"d{d} causal={causal!s:5s} {row['dtype']:8s} " + "  ".join(
                       f"{g} err {row['err_' + g]:.3e} (tol "
                       f"{row['tol_' + g]:.3e})" for g in ("dq", "dk", "dv"))

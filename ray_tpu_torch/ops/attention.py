@@ -14,7 +14,7 @@ to the plain versions ``reference_attention`` and
 ``reference_attention_backward``; CUDA tensors launch the kernels in
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` or raise.  The C entry
 points pick the kernel by dtype: bf16 takes the tensor-core (``mma.sync``)
-forward and dQ kernels, f32 the scalar f32 ones; dK/dV is scalar in both.
+forward, dK/dV and dQ kernels, f32 the scalar f32 ones.
 ``FlashAttention`` joins the two for autograd, as ``jax.custom_vjp`` does
 in the JAX package.
 """
@@ -204,9 +204,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` and ``lse`` (bh, seq_q) f32 are what ``flash_forward``
     returned.  CPU tensors take ``reference_attention_backward``.  CUDA
     tensors compute delta in torch, then launch the dK/dV kernel and the
-    dQ kernel (bf16 or f32, head_dim 32/64/128, contiguous) and raise on
-    anything they do not take.  ``flash_backward.launches`` counts each
-    kernel's launches under its name."""
+    dQ kernel (head_dim 32/64/128, contiguous; bf16 on the tensor cores,
+    f32 scalar) and raise on anything they do not take.
+    ``flash_backward.launches`` counts each kernel's launches under its
+    name."""
     _check_packed(q, k, v)
     if out.shape != q.shape or d_out.shape != q.shape \
             or lse.shape != q.shape[:2]:

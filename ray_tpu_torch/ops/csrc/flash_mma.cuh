@@ -1,12 +1,16 @@
 // Tile mechanics shared by the tensor-core flash-attention kernels
 // (flash_fwd.cu `flash_fwd_mma_kernel`, flash_bwd.cu
-// `flash_bwd_dq_mma_kernel`): bf16 tiles of 64 rows staged in shared memory
-// by 16-byte cp.async copies, read into mma.sync m16n8k16 fragments with
-// ldmatrix, and the products on Hopper's tensor cores with f32 sums.
+// `flash_bwd_dq_mma_kernel` and `flash_bwd_dkv_mma_kernel`): bf16 tiles of
+// 64 rows staged in shared memory by 16-byte cp.async copies, read into
+// mma.sync m16n8k16 fragments with ldmatrix, and the products on Hopper's
+// tensor cores with f32 sums.
 //
-// Both kernels are query-stationary: one block of 4 warps owns a 64-row
-// tile of one head's queries, each warp 16 of those rows, and K/V tiles of
-// 64 rows stream past it in a 2-stage ring.
+// One block of 4 warps owns a 64-row tile, each warp 16 of its rows, and
+// tiles of 64 rows stream past it in a 2-stage ring.  The forward and dQ
+// are query-stationary (a tile of one head's queries; K/V tiles stream);
+// dK/dV is KV-stationary (a tile of one KV head's keys; Q/dO tiles of the
+// query heads of its group stream, and its scores come out transposed:
+// keys are rows, queries columns).
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -33,10 +37,10 @@ namespace rtt_mma {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kRows = 64;  // query rows per block = key rows per tile
-constexpr int kWarps = 4;  // each warp owns 16 query rows
+constexpr int kRows = 64;  // rows per block = rows per streamed tile
+constexpr int kWarps = 4;  // each warp owns 16 of the block's rows
 constexpr int kThreads = 32 * kWarps;
-constexpr int kKeyTiles = kRows / 8;  // n8 score tiles per key tile
+constexpr int kKeyTiles = kRows / 8;  // n8 score tiles per streamed tile
 constexpr float kNegInf = -1e30f;     // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -64,6 +68,13 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(n));
+}
+
+// 4-byte global -> shared copy (cp.async.ca), for rows that are only
+// 4-byte aligned: lse and delta when seq_q % 4 != 0.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -133,10 +144,11 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t tile,
   ldsm_x4(a, tile + (uint32_t)(r * Tile<D>::kStride + c) * 2u);
 }
 
-// B fragments of X * T^T, T a row-major tile of keys (K for the scores, V
-// for dO * V^T): k is the head dim, n the key.  Two n8 tiles, keys
-// [n0, n0 + 8) in b[0], b[1] and [n0 + 8, n0 + 16) in b[2], b[3], for the
-// head-dim slab [k0, k0 + 16).  B column n is T row n, so plain ldmatrix.
+// B fragments of X * T^T, T a row-major tile of the streamed rows (K for
+// the scores, V for dO * V^T; Q for K * Q^T, dO for V * dO^T in dK/dV): k
+// is the head dim, n the tile's row.  Two n8 tiles, rows [n0, n0 + 8) in
+// b[0], b[1] and [n0 + 8, n0 + 16) in b[2], b[3], for the head-dim slab
+// [k0, k0 + 16).  B column n is T row n, so plain ldmatrix.
 template <int D>
 __device__ __forceinline__ void load_b_keys(uint32_t (&b)[4], uint32_t tile,
                                             int n0, int k0, int lane) {
@@ -145,11 +157,12 @@ __device__ __forceinline__ void load_b_keys(uint32_t (&b)[4], uint32_t tile,
   ldsm_x4(b, tile + (uint32_t)(r * Tile<D>::kStride + c) * 2u);
 }
 
-// B fragments of P * T, T a row-major tile of keys (V for P * V, K for
-// dS * K): k is the key, n the head dim.  For the key slab [k0, k0 + 16),
-// head dims [n0, n0 + 8) in b[0], b[1] and [n0 + 8, n0 + 16) in b[2], b[3].
-// B row k is T row k, so ldmatrix.trans turns each stored 8 x 8 quadrant
-// (8 keys x 8 dims) into the (k 2t..2t+1, n g) pairs of the fragment.
+// B fragments of P * T, T a row-major tile of the streamed rows (V for
+// P * V, K for dS * K; dO for P^T * dO, Q for dS^T * Q in dK/dV): k is the
+// tile's row, n the head dim.  For the row slab [k0, k0 + 16), head dims
+// [n0, n0 + 8) in b[0], b[1] and [n0 + 8, n0 + 16) in b[2], b[3].  B row k
+// is T row k, so ldmatrix.trans turns each stored 8 x 8 quadrant (8 rows x
+// 8 dims) into the (k 2t..2t+1, n g) pairs of the fragment.
 template <int D>
 __device__ __forceinline__ void load_b_dims(uint32_t (&b)[4], uint32_t tile,
                                             int k0, int n0, int lane) {
@@ -196,6 +209,19 @@ __device__ __forceinline__ bool masked(int kv0, int nt, int e, int t,
   const int col = kv0 + nt * 8 + 2 * t + (e & 1);
   const int row = row_a + ((e >> 1) << 3);
   return col >= seq_k || (kCausal && col > row);
+}
+
+// The same for a transposed score tile (dK/dV: rows are keys, columns
+// queries): element e of n8 tile nt is masked when its key is at or past
+// seq_k, or when causal and its query comes before its key (col < key).
+// q0 is the tile's first query, key_a this lane's first key (g), key_a + 8
+// its second.  Queries past seq_q need no mask: their lse is +1e30.
+template <bool kCausal>
+__device__ __forceinline__ bool masked_t(int q0, int nt, int e, int t,
+                                         int key_a, int seq_k) {
+  const int col = q0 + nt * 8 + 2 * t + (e & 1);
+  const int key = key_a + ((e >> 1) << 3);
+  return key >= seq_k || (kCausal && col < key);
 }
 
 // Store a 16 x D f32 fragment row pair to rows row_a, row_a + 8 of a

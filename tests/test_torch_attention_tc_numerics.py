@@ -1,25 +1,30 @@
 """The rounding model of the tensor-core flash kernels, held to the JAX
 package's Pallas kernels and to the port's plain versions on the CPU.
 
-``flash_fwd_mma_kernel`` and ``flash_bwd_dq_mma_kernel``
-(``ray_tpu_torch/ops/csrc``) run only on the card.  What they do to the
-numbers is emulated here in plain torch, at their own tile sizes and
-rounding points: bf16 operands with f32 products; the scores scaled in f32
-after the product, in the log2 domain of ``exp2f``; an online softmax over
-64-column key tiles for 64-row query tiles, P rounded to bf16 before P·V
-while l sums the f32 p; dS = p(dP − δ)·scale rounded to bf16 before dS·K;
-out and dQ rounded to bf16 once.  The emulation must meet exactly the
-tolerances ``chip_smoke.py`` holds the kernels to on the card
-(``out_tolerance``, ``LSE_TOL``, ``grad_tolerance``), against the Pallas
-kernels in interpret mode and against ``reference_attention`` /
+``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel`` and
+``flash_bwd_dkv_mma_kernel`` (``ray_tpu_torch/ops/csrc``) run only on the
+card.  What they do to the numbers is emulated here in plain torch, at
+their own tile sizes and rounding points: bf16 operands with f32
+products; the scores scaled in f32 after the product, in the log2 domain
+of ``exp2f``; an online softmax over 64-column key tiles for 64-row query
+tiles, P rounded to bf16 before P·V while l sums the f32 p; dS = p(dP −
+δ)·scale rounded to bf16 before dS·K; out and dQ rounded to bf16 once.
+dK/dV is KV-stationary: 64-row KV tiles against 64-row Q tiles, the
+transposed scores Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, Pᵀ and dSᵀ rounded to bf16
+before Pᵀ·dO and dSᵀ·Q, the GQA group summed in f32 and dK, dV rounded
+to bf16 once.  The emulation must meet exactly the tolerances
+``chip_smoke.py`` holds the kernels to on the card (``out_tolerance``,
+``LSE_TOL``, ``grad_tolerance``), against the Pallas kernels in interpret
+mode and against ``reference_attention`` /
 ``reference_attention_backward``, on the same numpy-seeded bf16 inputs.
 A tolerance that would reject a correct tensor-core kernel fails here,
 before any time on the card.
 
 Nothing ties the emulation to the ``.cu`` sources: a change to the
 kernels' tile sizes or rounding points (``flash_mma.cuh``,
-``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``) must change
-``emulate_forward`` / ``emulate_dq`` with it.
+``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
+``flash_bwd_dkv_mma_kernel``) must change ``emulate_forward`` /
+``emulate_dq`` / ``emulate_dkv`` with it.
 """
 
 import math
@@ -131,9 +136,39 @@ def emulate_dq(q, k, v, d_out, lse, delta, causal, scale):
     return dq.to(q.dtype)
 
 
+def emulate_dkv(q, k, v, d_out, lse, delta, causal, scale):
+    """``flash_bwd_dkv_mma_kernel``'s arithmetic: (dk, dv) in bf16.  One
+    block per 64-row KV tile sweeps the query heads of its group and, in
+    each, the Q tiles from the first one causality lets see the tile."""
+    bh_kv, seq_k, _ = k.shape
+    group, seq_q = q.shape[0] // bh_kv, q.shape[1]
+    qf, dof, kf, vf = q.float(), d_out.float(), k.float(), v.float()
+    scale_log2 = _f32(scale) * _f32(LOG2E)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for c0 in range(0, seq_k, TILE):
+        c1 = min(c0 + TILE, seq_k)
+        for g in range(group):
+            heads = torch.arange(bh_kv) * group + g
+            for q0 in range(c0 if causal else 0, seq_q, TILE):
+                q1 = min(q0 + TILE, seq_q)
+                qt, dot = qf[heads, q0:q1], dof[heads, q0:q1]
+                # transposed scores: keys are rows, queries columns, and
+                # lse, delta are per column
+                st = kf[:, c0:c1] @ qt.transpose(1, 2)
+                dpt = vf[:, c0:c1] @ dot.transpose(1, 2)
+                lse2 = (lse[heads, q0:q1] * _f32(LOG2E))[:, None, :]
+                pt = torch.exp2(st * scale_log2 - lse2).masked_fill(
+                    _mask(q0, q1, c0, c1, causal).T, 0.0)
+                dst = pt * (dpt - delta[heads, None, q0:q1]) * _f32(scale)
+                dv[:, c0:c1] += pt.to(torch.bfloat16).float() @ dot
+                dk[:, c0:c1] += dst.to(torch.bfloat16).float() @ qt
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _pallas(q, k, v, d_out, causal, scale, block):
-    """The JAX package's forward and dQ (Pallas, interpret mode) on KV heads
-    repeated as its public API repeats them: (out, lse, dq) as torch."""
+    """The JAX package's forward and backward (Pallas, interpret mode) on KV
+    heads repeated as its public API repeats them: (out, lse, dq, dk, dv)
+    as torch, dk and dv summed over each KV head's group in f32."""
     group = q.shape[0] // k.shape[0]
 
     def j(x, rep=1):
@@ -144,14 +179,19 @@ def _pallas(q, k, v, d_out, causal, scale, block):
     out, lse = jattn._flash_forward(jq, jk, jv, causal=causal, sm_scale=scale,
                                     block_q=block, block_k=block,
                                     interpret=True)
-    dq, _, _ = jattn._flash_backward(jq, jk, jv, out, lse, jdo, causal=causal,
-                                     sm_scale=scale, block_q=block,
-                                     block_k=block, interpret=True)
+    dq, dk, dv = jattn._flash_backward(jq, jk, jv, out, lse, jdo,
+                                       causal=causal, sm_scale=scale,
+                                       block_q=block, block_k=block,
+                                       interpret=True)
 
     def t(x):
         return torch.from_numpy(np.array(x.astype(jnp.float32)))
 
-    return t(out).to(torch.bfloat16), t(lse)[..., 0], t(dq).to(torch.bfloat16)
+    def fold(x):  # (bh, seq_k, d) -> (bh_kv, seq_k, d)
+        return t(x).reshape(k.shape[0], group, *k.shape[1:]).sum(dim=1)
+
+    return (t(out).to(torch.bfloat16), t(lse)[..., 0],
+            t(dq).to(torch.bfloat16), fold(dk), fold(dv))
 
 
 def _err(a, b):
@@ -163,7 +203,8 @@ def test_tensor_core_rounding_meets_chip_tolerances(case):
     b, h, hkv, sq, sk, d, causal, block = CASES[case]
     q, k, v, d_out = _inputs(b, h, hkv, sq, sk, d, seed=7)
     scale = 1.0 / math.sqrt(d)
-    j_out, j_lse, j_dq = _pallas(q, k, v, d_out, causal, scale, block)
+    j_out, j_lse, j_dq, j_dk, j_dv = _pallas(q, k, v, d_out, causal, scale,
+                                             block)
     p_out, p_lse = tattn.reference_attention(q, k, v, causal, scale)
 
     out, lse = emulate_forward(q, k, v, causal, scale)
@@ -180,15 +221,53 @@ def test_tensor_core_rounding_meets_chip_tolerances(case):
     assert _err(dq, j_dq) <= chip_smoke.grad_tolerance(torch.bfloat16, j_dq)
     # and as chip_smoke.py checks the kernel: against the plain backward
     # on the same out and lse
-    p_dq, _, _ = tattn.reference_attention_backward(
+    p_dq, p_dk, p_dv = tattn.reference_attention_backward(
         q, k, v, j_out, j_lse, d_out, causal, scale)
     assert _err(dq, p_dq) <= chip_smoke.grad_tolerance(torch.bfloat16, p_dq)
+
+    dk, dv = emulate_dkv(q, k, v, d_out, j_lse, delta, causal, scale)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    for got, want in ((dk, j_dk), (dv, j_dv), (dk, p_dk), (dv, p_dv)):
+        assert _err(got, want) <= chip_smoke.grad_tolerance(torch.bfloat16,
+                                                            want)
+
+
+# dK/dV against the plain version only: (batch, heads, kv_heads, seq_q,
+# seq_k, head_dim, causal)
+DKV_PLAIN_CASES = {
+    # GQA group 4, as in the llama3_8b GQA 32:8 check on the card, with up
+    # to 4 x 1024 = 4096 terms summed per key (that check sums up to 8192
+    # at head_dim 128, beyond what the CPU emulation runs quickly)
+    "gqa_4_1_s1024_causal": (1, 4, 1, 1024, 1024, 64, True),
+    # chip_smoke.py's ragged_causal_wide: KV tile 2 is seen by no query
+    # and must be all zeros, KV tile 1 by a Q tile partly past seq_q
+    "ragged_causal_wide": (1, 4, 2, 77, 130, 64, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DKV_PLAIN_CASES))
+def test_dkv_rounding_meets_chip_tolerance_against_plain(case):
+    b, h, hkv, sq, sk, d, causal = DKV_PLAIN_CASES[case]
+    q, k, v, d_out = _inputs(b, h, hkv, sq, sk, d, seed=11)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = tattn.reference_attention(q, k, v, causal, scale)
+    delta = (d_out.float() * out.float()).sum(dim=-1)
+    _, p_dk, p_dv = tattn.reference_attention_backward(
+        q, k, v, out, lse, d_out, causal, scale)
+    dk, dv = emulate_dkv(q, k, v, d_out, lse, delta, causal, scale)
+    for got, want in ((dk, p_dk), (dv, p_dv)):
+        assert bool(torch.isfinite(got.float()).all())
+        assert _err(got, want) <= chip_smoke.grad_tolerance(torch.bfloat16,
+                                                            want)
+    if causal and sk > sq:  # keys past the last query: exactly zero in both
+        for got, want in ((dk, p_dk), (dv, p_dv)):
+            assert not got[:, sq:].any() and not want[:, sq:].any()
 
 
 def test_empty_and_unseen_rows_match_the_plain_versions():
     """A row that sees no key gets out = 0 and lse = +1e30, and a row with
-    lse = +1e30 gets dQ = 0, in the emulation as in the kernels and the
-    plain versions."""
+    lse = +1e30 gets dQ = 0 and adds nothing to dK and dV, in the emulation
+    as in the kernels and the plain versions."""
     q, _, _, d_out = _inputs(1, 2, 1, 5, 1, 32, seed=8)
     k = torch.zeros(1, 0, 32, dtype=torch.bfloat16)
     out, lse = emulate_forward(q, k, k, False, 0.1)
@@ -200,3 +279,6 @@ def test_empty_and_unseen_rows_match_the_plain_versions():
     lse = torch.full((2, 70), 1e30)
     dq = emulate_dq(q, k, v, d_out, lse, torch.ones(2, 70), True, 0.1)
     assert torch.equal(dq, torch.zeros_like(q))
+    dk, dv = emulate_dkv(q, k, v, d_out, lse, torch.ones(2, 70), True, 0.1)
+    assert torch.equal(dk, torch.zeros_like(k))
+    assert torch.equal(dv, torch.zeros_like(v))

@@ -85,3 +85,17 @@ def test_trainer_shape_bounds():
         assert ops == want
         assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == \
             "operations"
+
+
+def test_profiler_names_tell_the_kernels_apart():
+    """The profiled train step counts kernels by substring of their
+    demangled names, so no scalar kernel's name may match a tensor-core
+    kernel's (``flash_bwd_dkv_kernel`` is not in
+    ``flash_bwd_dkv_mma_kernel``), and every wrapper names a tensor-core
+    kernel on the bf16 path."""
+    tensor_core = set(chip_smoke.BF16_KERNELS.values())
+    assert len(tensor_core) == 3 and all("_mma_" in n for n in tensor_core)
+    for scalar in chip_smoke.SCALAR_KERNELS:
+        assert not any(scalar in n for n in tensor_core)
+        assert not any(n in scalar for n in tensor_core)
+    assert set(chip_smoke.DESIGN) == set(chip_smoke.BF16_KERNELS)
