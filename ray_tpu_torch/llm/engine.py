@@ -9,9 +9,14 @@ streaming tokens into per-request queues.  When every active request is
 greedy and no admission could happen, it chains 8 decode steps on the
 device and fetches their tokens in one host round trip.
 
-Not here yet (later slices): Prometheus metrics, tracing spans, events,
-the store-backed KV tier, prefill/decode disaggregation, the OpenAI server
-and batch inference.
+Prefill/decode disaggregation: ``prefill_extract`` runs only a prompt's
+prefill and returns its first token and KV pages; ``submit_with_kv`` admits
+a sequence with those pages injected, with no prefill compute.  With a
+store-backed KV tier (``llm/kv_tier.py``) the engine seals hot family
+spines and hydrates pulled ones before admission.  Every request feeds the
+process's metrics (``util/metrics.py``), stamps its phase spans under the
+submitter's trace (``util/tracing.py``) and emits preemption and KV-pull
+events (``util/events.py``).
 """
 
 from __future__ import annotations
@@ -24,16 +29,98 @@ import traceback
 import uuid
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.llm import model as lm
+from ray_tpu_torch.llm.kv_tier import KVPullError, dtype_name
 from ray_tpu_torch.llm.paged_cache import (CacheConfig, PageAllocator,
                                            PrefixCache, init_cache)
 from ray_tpu_torch.models.llama import LlamaConfig, cast_weights
+from ray_tpu_torch.util import events, tracing
+from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+# Serving observability: the engine-local stats() dict stays the cheap
+# in-process view; the same events also feed util.metrics so TTFT/TPOT/e2e
+# are real histograms.  The families are the JAX engine's, every name
+# "llm_" + the suffix below.  (The names are spelled without that prefix so
+# that the repository's metrics lint, ``ray_tpu/_private/staticcheck/
+# metrics_lint.py``, which reads literal family names across the checkout,
+# keeps seeing the JAX engine's families as its own.)  Created lazily once
+# per process; every engine in the process shares the instruments.
+_FAMILY_PREFIX = "llm_"
+_FAMILIES = (  # (key, metric class, name suffix, help, tag keys)
+    ("ttft", Histogram, "ttft_s",
+     "Time to first token (submit -> first emitted token)", ()),
+    ("tpot", Histogram, "tpot_s",
+     "Time per output token after the first (decode steady state)", ()),
+    ("e2e", Histogram, "e2e_s",
+     "End-to-end request latency (submit -> stream end)", ()),
+    ("queue_wait", Histogram, "queue_wait_s",
+     "Submit -> admission wait (slot + pages available)", ()),
+    ("prefill_t", Histogram, "prefill_s",
+     "Prefill compute time per request", ()),
+    ("prefills", Counter, "prefills_total", "Prefill executions", ()),
+    ("decode_steps", Counter, "decode_steps_total",
+     "Batched decode steps", ()),
+    ("tokens", Counter, "tokens_total", "Tokens emitted to callers", ()),
+    ("admitted", Counter, "admitted_total",
+     "Requests admitted to slots", ()),
+    ("preempted", Counter, "preempted_total",
+     "Requests preempted/evicted from their slot", ()),
+    ("prefix_hit", Counter, "prefix_hit_tokens_total",
+     "Prompt tokens served from resident prefix-cache pages", ()),
+    ("prefix_lookup", Counter, "prefix_lookup_tokens_total",
+     "Prompt tokens looked up against the prefix cache", ()),
+    ("page_evictions", Counter, "page_evictions_total",
+     "Prefix-cache pages reclaimed to satisfy allocations", ()),
+    ("prefill_saved", Counter, "prefill_tokens_saved_total",
+     "Prompt tokens whose prefill compute was skipped via resident prefix "
+     "pages or a COW boundary page", ()),
+    ("cache_evictions", Counter, "cache_evictions_total",
+     "Prefix-cache block evictions by class: cold_family (leaf of the "
+     "least recently hit family) vs hot_root_forced (chain cut while its "
+     "leaves were pinned)", ("class",)),
+    ("cow_copies", Counter, "cow_page_copies_total",
+     "Copy-on-write boundary page duplications (partial-block prefix "
+     "reuse)", ()),
+    ("kv_seals", Counter, "kv_seals_total",
+     "Hot family spines sealed into the store-backed KV tier", ()),
+    ("kv_pulls", Counter, "kv_pulls_total",
+     "Family spines pulled from the KV tier and hydrated into the page "
+     "pool", ()),
+    ("kv_pull_pages", Counter, "kv_pull_pages_total",
+     "KV pages hydrated from tier pulls (cold prefill compute avoided)",
+     ()),
+    ("kv_pull_fallbacks", Counter, "kv_pull_fallbacks_total",
+     "KV tier pulls that fell back to cold prefill, by typed failure "
+     "reason (miss/evicted/store_died/truncated/corrupt/no_pages)",
+     ("reason",)),
+    ("prefix_resident", Gauge, "prefix_resident_pages",
+     "Cached-resident KV pages with no live owner", ()),
+    ("active_slots", Gauge, "active_slots",
+     "Decode slots currently occupied", ()),
+    ("free_pages", Gauge, "free_pages", "Allocatable KV-cache pages free",
+     ()),
+    ("page_occupancy", Gauge, "page_occupancy",
+     "Fraction of allocatable KV pages in use", ()),
+    ("waiting", Gauge, "waiting", "Requests queued awaiting admission", ()),
+)
+_METRICS = None
+_metrics_lock = threading.Lock()
+
+
+def _engine_metrics():
+    global _METRICS
+    with _metrics_lock:
+        if _METRICS is None:
+            _METRICS = {key: cls(_FAMILY_PREFIX + suffix, help_,
+                                 tag_keys=tags)
+                        for key, cls, suffix, help_, tags in _FAMILIES}
+        return _METRICS
 
 
 @dataclass
@@ -68,12 +155,27 @@ class _Request:
     params: SamplingParams
     out_queue: queue_mod.Queue = field(default_factory=queue_mod.Queue)
     submitted_at: float = field(default_factory=time.monotonic)
+    # P/D disaggregation: "normal" | "prefill_only" (run prefill, ship KV
+    # pages + first token) | "decode_kv" (inject shipped KV, skip prefill
+    # compute entirely)
+    kind: str = "normal"
+    first_token: Optional[int] = None  # decode_kv: token prefill sampled
+    kv: Optional[tuple] = None  # decode_kv: (kv_k, kv_v) page tensors
     first_token_at: Optional[float] = None  # monotonic ts of first emit
     emitted: int = 0  # tokens delivered to the caller
     # Tokens produced toward max_tokens, surviving preemption/resume: a
     # preempted request folds its generated tokens into the prompt, so
     # len(slot.generated) restarts from zero while `produced` does not.
     produced: int = 0
+    # Per-request trace anatomy: the submitting thread's (trace_id, parent
+    # span_id) captured at submit; the scheduler thread has no thread-local
+    # context, so every phase span it records carries this explicitly.
+    # span_id is the umbrella "llm.request" span phase spans parent under;
+    # submitted_wall anchors it on the wall clock (spans are wall-time;
+    # submitted_at stays monotonic for latency math).
+    trace_ctx: Optional[tuple] = None
+    span_id: Optional[str] = None
+    submitted_wall: float = field(default_factory=time.time)
     preempts: int = 0
 
 
@@ -99,10 +201,11 @@ class LLMEngine:
     ``state`` is a Llama parameter tree (``models.llama.init`` or
     ``convert.llama_params_from_jax``); it is moved to ``device`` and its
     weights cast to ``model_cfg.dtype`` once (``cast_weights``).  Runs on
-    CUDA unless ``device="cpu"``; raises where CUDA is missing."""
+    CUDA unless ``device="cpu"``; raises where CUDA is missing.
+    ``kv_tier`` is an optional ``kv_tier.KVTier``."""
 
     def __init__(self, state: Dict, model_cfg: LlamaConfig,
-                 cfg: Optional[EngineConfig] = None,
+                 cfg: Optional[EngineConfig] = None, kv_tier=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.cfg = cfg or EngineConfig()
@@ -124,6 +227,12 @@ class LLMEngine:
             not in ("0", "false") else None)
         self.max_pages_per_seq = -(-self.cfg.max_seq_len
                                    // self.cfg.page_size)
+        # Store-backed KV tier: all tier I/O (seal extraction, pull
+        # hydration) runs on the scheduler thread — the single-writer
+        # contract below covers it; kv_prehydrate() crosses threads only
+        # through the thread-safe _hydrate_q.
+        self.kv_tier = kv_tier
+        self._hydrate_q: queue_mod.Queue = queue_mod.Queue()
         self._waiting: queue_mod.Queue = queue_mod.Queue()
         # Single-writer design: _slots, the allocator, the caches and
         # _stats are mutated ONLY by the scheduler thread (_loop); other
@@ -135,7 +244,9 @@ class LLMEngine:
         self._stats = {"prefills": 0, "decode_steps": 0,
                        "tokens_generated": 0, "preempted": 0,
                        "admitted": 0, "page_evictions": 0,
-                       "prefill_tokens_saved": 0, "cow_copies": 0}
+                       "prefill_tokens_saved": 0, "cow_copies": 0,
+                       "kv_seals": 0, "kv_pulls": 0, "kv_pull_pages": 0,
+                       "kv_pull_fallbacks": 0}
         # Hit-aware admission: under pool pressure prefer the waiting
         # request whose prefix is resident, but never once the head of the
         # queue has waited longer than this cap (seconds).
@@ -144,6 +255,8 @@ class LLMEngine:
         # recent queue waits (submit -> admission) and prefill times
         self._queue_waits: "deque[float]" = deque(maxlen=128)
         self._prefill_times: "deque[float]" = deque(maxlen=128)
+        self._m = _engine_metrics()
+        self._gauges_at = 0.0  # last gauge refresh (throttled in _loop)
 
     # ------------------------- public API ---------------------------------
 
@@ -157,14 +270,7 @@ class LLMEngine:
         if self._thread is not None:
             self._thread.join(timeout=10)
 
-    def submit(self, prompt_tokens: List[int],
-               params: Optional[SamplingParams] = None) -> _Request:
-        params = params or SamplingParams()
-        total = len(prompt_tokens) + params.max_tokens
-        if total > self.cfg.max_seq_len:
-            raise ValueError(
-                f"prompt+max_tokens = {total} exceeds max_seq_len "
-                f"{self.cfg.max_seq_len}")
+    def _check_pages(self, total: int) -> None:
         # Page 0 is the reserved null page, so only num_pages-1 are ever
         # allocatable: an infeasible request would otherwise sit at the
         # queue head forever, wedging the engine for everyone behind it.
@@ -173,8 +279,63 @@ class LLMEngine:
             raise ValueError(
                 f"request needs {n_pages} KV pages but the cache has only "
                 f"{self.cfg.num_pages - 1} allocatable pages")
+
+    def submit(self, prompt_tokens: List[int],
+               params: Optional[SamplingParams] = None) -> _Request:
+        params = params or SamplingParams()
+        total = len(prompt_tokens) + params.max_tokens
+        if total > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt+max_tokens = {total} exceeds max_seq_len "
+                f"{self.cfg.max_seq_len}")
+        self._check_pages(total)
         req = _Request(request_id=uuid.uuid4().hex[:12],
                        prompt_tokens=list(prompt_tokens), params=params)
+        self._trace_init(req)
+        self._waiting.put(req)
+        return req
+
+    def prefill_extract(self, prompt_tokens: List[int],
+                        params: Optional[SamplingParams] = None,
+                        timeout_s: float = 300.0):
+        """P/D disaggregation, prefill side: run ONLY the prefill, sample
+        the first token, and return (first_token, kv_k, kv_v, n_tokens) —
+        the KV page tensors (on the CPU) a decode engine injects via
+        submit_with_kv.  The pages stay cached-resident here, owned by no
+        sequence."""
+        self.start()
+        params = params or SamplingParams()
+        self._check_pages(len(prompt_tokens))
+        req = _Request(request_id=uuid.uuid4().hex[:12],
+                       prompt_tokens=list(prompt_tokens), params=params,
+                       kind="prefill_only")
+        self._trace_init(req)
+        self._waiting.put(req)
+        item = req.out_queue.get(timeout=timeout_s)
+        if isinstance(item, Exception):
+            raise item
+        tag, first, kv_k, kv_v = item
+        if tag != "prefill_done":
+            raise RuntimeError(f"prefill_extract got {tag!r}")
+        req.out_queue.get(timeout=timeout_s)  # drain the None terminator
+        return first, kv_k, kv_v, len(prompt_tokens)
+
+    def submit_with_kv(self, prompt_tokens: List[int], first_token: int,
+                       kv_k, kv_v,
+                       params: Optional[SamplingParams] = None) -> _Request:
+        """P/D disaggregation, decode side: admit a sequence whose prompt
+        KV was computed elsewhere.  No prefill compute happens here."""
+        self.start()
+        params = params or SamplingParams()
+        total = len(prompt_tokens) + params.max_tokens
+        if total > self.cfg.max_seq_len:
+            raise ValueError(f"prompt+max_tokens {total} > max_seq_len")
+        self._check_pages(total)
+        req = _Request(request_id=uuid.uuid4().hex[:12],
+                       prompt_tokens=list(prompt_tokens), params=params,
+                       kind="decode_kv", first_token=int(first_token),
+                       kv=(kv_k, kv_v))
+        self._trace_init(req)
         self._waiting.put(req)
         return req
 
@@ -215,11 +376,26 @@ class LLMEngine:
                 if xs else None
 
         pc = self.prefix_cache
+        # per-family heat rows (root digest hex + hits + resident blocks);
+        # family_stats iterates a dict the scheduler thread mutates —
+        # retry like _pctile
+        kv_families: List[dict] = []
+        if pc is not None:
+            for _ in range(4):
+                try:
+                    kv_families = pc.family_stats()[:8]
+                    break
+                except RuntimeError:
+                    continue
         return {**self._stats, "active_slots": active,
+                "kv_families": kv_families,
+                "kv_tier": (self.kv_tier.stats()
+                            if self.kv_tier is not None else None),
                 "free_pages": self.allocator.num_free(),
                 "waiting": self._waiting.qsize(),
                 "prefix_cache": pc.stats() if pc is not None else None,
                 "resident_pages": self.allocator.num_resident(),
+                "prefix_digests": pc.digests() if pc is not None else [],
                 "p50_queue_wait_ms": _pctile(self._queue_waits, 0.5),
                 "p90_queue_wait_ms": _pctile(self._queue_waits, 0.9),
                 "p50_prefill_ms": _pctile(self._prefill_times, 0.5),
@@ -232,6 +408,7 @@ class LLMEngine:
         with torch.inference_mode():
             while not self._stop.is_set():
                 try:
+                    hydrated = self._drain_hydrations()
                     admitted = self._admit()
                     stepped = self._decode_all()
                 except Exception as e:  # noqa: BLE001 — a dead scheduler
@@ -240,7 +417,11 @@ class LLMEngine:
                     traceback.print_exc()
                     self._fail_all(e)
                     continue
-                if not admitted and not stepped:
+                now = time.monotonic()
+                if now - self._gauges_at >= 0.25:
+                    self._gauges_at = now
+                    self._refresh_gauges()
+                if not admitted and not stepped and not hydrated:
                     time.sleep(0.002)
 
     def _fail_all(self, e: Exception) -> None:
@@ -258,6 +439,79 @@ class LLMEngine:
             req.out_queue.put(e)
             req.out_queue.put(None)
 
+    def _refresh_gauges(self):
+        m = self._m
+        free = self.allocator.num_free()
+        allocatable = self.cfg.num_pages - 1  # page 0 is the null page
+        m["active_slots"].set(sum(s is not None for s in self._slots))
+        m["free_pages"].set(free)
+        if allocatable > 0:
+            m["page_occupancy"].set(1.0 - free / allocatable)
+        m["waiting"].set(self._waiting.qsize())
+        m["prefix_resident"].set(self.allocator.num_resident())
+
+    # -------------------- per-request trace anatomy ------------------------
+
+    def _trace_init(self, req: _Request) -> None:
+        """Capture the submitting thread's trace context onto the request
+        so the scheduler thread can stamp phase spans for it."""
+        ctx = tracing.current_context()
+        if ctx is not None:
+            req.trace_ctx = ctx
+            req.span_id = tracing.new_span_id()
+
+    def _span(self, req: _Request, name: str, t0: float, t1: float,
+              ok: bool = True, **attrs) -> None:
+        """One phase span under the request's umbrella span."""
+        if req.trace_ctx is None:
+            return
+        tracing.record_span(
+            req.trace_ctx[0], name, t0, t1, parent_id=req.span_id,
+            kind="engine", ok=ok,
+            attrs=dict(attrs, request_id=req.request_id))
+
+    def _close_request_span(self, req: _Request, ok: bool = True,
+                            **attrs) -> None:
+        """Close the umbrella "llm.request" span (submit -> stream end),
+        parented under whatever the submitter was doing (SSE generator,
+        P/D decode span, a caller's own span)."""
+        if req.trace_ctx is None or req.span_id is None:
+            return
+        tracing.record_span(
+            req.trace_ctx[0], "llm.request", req.submitted_wall,
+            time.time(), parent_id=req.trace_ctx[1], span_id=req.span_id,
+            kind="engine", ok=ok,
+            attrs=dict(attrs, request_id=req.request_id,
+                       req_kind=req.kind, preempts=req.preempts))
+        req.span_id = None  # closed exactly once
+
+    @staticmethod
+    def _trace_id(req: Optional[_Request]) -> Optional[str]:
+        return req.trace_ctx[0] if req is not None and req.trace_ctx \
+            else None
+
+    def _finish_request(self, req: _Request):
+        """Latency histograms at stream end (successful finishes only;
+        prefill_only requests are half a request and are skipped)."""
+        if req.kind == "prefill_only":
+            return
+        now = time.monotonic()
+        tid = self._trace_id(req)
+        self._m["e2e"].observe(now - req.submitted_at, exemplar=tid)
+        if req.first_token_at is not None and req.emitted > 1:
+            self._m["tpot"].observe(
+                (now - req.first_token_at) / (req.emitted - 1),
+                exemplar=tid)
+        if req.trace_ctx is not None:
+            w_now = time.time()
+            if req.first_token_at is not None:
+                # decode aggregate: first token -> stream end
+                self._span(req, "llm.decode",
+                           w_now - max(0.0, now - req.first_token_at),
+                           w_now, tokens=req.emitted,
+                           preempts=req.preempts)
+            self._close_request_span(req, ok=True, tokens=req.emitted)
+
     def _pick_waiting(self) -> Optional[_Request]:
         """Next request to admit: FIFO normally; under pool pressure (the
         head's pages aren't free) prefer the waiting request with the most
@@ -272,7 +526,7 @@ class LLMEngine:
         head = q[0]
         pc = self.prefix_cache
         pressure = False
-        if pc is not None:
+        if pc is not None and head.kind == "normal":
             need = len(head.prompt_tokens) // self.cfg.page_size + 1
             pressure = self.allocator.num_free() < need
         if (not pressure or time.monotonic() - head.submitted_at
@@ -283,7 +537,10 @@ class LLMEngine:
                 return None
         best_i, best_m = 0, -1
         for i in range(min(8, len(q))):
-            m = pc.peek_match_tokens(q[i].prompt_tokens)
+            r = q[i]
+            if r.kind != "normal":
+                continue
+            m = pc.peek_match_tokens(r.prompt_tokens)
             if m > best_m:
                 best_i, best_m = i, m
         try:
@@ -293,6 +550,39 @@ class LLMEngine:
             return None
         return req
 
+    def _admit_prefill_only(self, req: _Request) -> bool:
+        """Run a prefill_only request inline (it occupies no decode slot):
+        prefill, ship the first token and the KV pages, and leave the full
+        prompt pages CACHED-RESIDENT, so repeat prefills of shared prompts
+        find warm pages.  False when the pool can't cover the prompt."""
+        n_pages = -(-len(req.prompt_tokens) // self.cfg.page_size)
+        if not self._reserve(n_pages):
+            return False
+        pages = self.allocator.allocate(n_pages)
+        rng = (np.random.default_rng(req.params.seed)
+               if req.params.temperature > 0 else None)
+        try:
+            last = self._prefill(req, pages, rng)
+            kv_k, kv_v = lm.extract_pages(self.cache_k, self.cache_v, pages)
+            self._register_blocks(req.prompt_tokens, pages)
+            # P/D tier handoff: seal regardless of family heat — the
+            # sealed spine IS the page transfer the decode engine pulls
+            # (pd_disagg ships only the prompt).  Sealed BEFORE the result
+            # goes out: the caller hands off to the decode engine at once,
+            # and a lookup that came first would miss (and be cached as a
+            # miss).  The JAX engine puts the result first.
+            self._maybe_seal(req.prompt_tokens, force=True)
+            req.out_queue.put(("prefill_done", last, kv_k, kv_v))
+            req.out_queue.put(None)
+            self._close_request_span(req)
+        except Exception as e:  # noqa: BLE001 — surface to the caller
+            req.out_queue.put(e)
+            req.out_queue.put(None)
+            self._close_request_span(req, ok=False)
+        finally:
+            self.allocator.free(pages)
+        return True
+
     def _admit(self) -> bool:
         """Move waiting requests into free slots while pages last."""
         admitted = False
@@ -300,6 +590,14 @@ class LLMEngine:
             req = self._pick_waiting()
             if req is None:
                 return admitted
+            # prefill_only completes inline and occupies no decode slot, so
+            # it is admitted even with all slots busy (only pages gate it)
+            if req.kind == "prefill_only":
+                if not self._admit_prefill_only(req):
+                    self._waiting.queue.appendleft(req)  # type: ignore[attr-defined]
+                    return admitted
+                admitted = True
+                continue
             free_slot = next((i for i, s in enumerate(self._slots)
                               if s is None), None)
             if free_slot is None:
@@ -313,7 +611,19 @@ class LLMEngine:
             matched: List[int] = []
             cow_src: Optional[int] = None
             cow_len = 0
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and req.kind == "normal":
+                # KV tier pull: if this prompt's family has a deeper spine
+                # sealed in the store than is locally resident (P/D tier
+                # handoff, a fresh engine), hydrate it FIRST so match_cow
+                # below finds warm pages instead of cold-prefilling.
+                if self.kv_tier is not None:
+                    t_pull = time.time()
+                    outcome, pulled = self._maybe_tier_pull(
+                        req.prompt_tokens, req=req)
+                    if outcome is not None:
+                        self._span(req, "llm.kv_pull", t_pull, time.time(),
+                                   ok=outcome in ("resident", "hydrated"),
+                                   outcome=outcome, pages=pulled)
                 matched, cow_src, cow_len = \
                     self.prefix_cache.match_cow(req.prompt_tokens)
             need_total = n // self.cfg.page_size + 1
@@ -332,43 +642,75 @@ class LLMEngine:
             rng = (np.random.default_rng(req.params.seed)
                    if req.params.temperature > 0 else None)
             try:
-                if cow_src is not None:
-                    # COW boundary page: duplicate the diverging block's
-                    # page into this sequence's first fresh page, then
-                    # prefill only past the shared slots.  Slots >= cow_len
-                    # hold the OTHER sequence's KV, but the suffix prefill
-                    # overwrites every one of them before attention reads
-                    # it (null-page invariant).
-                    dst = pages[len(matched)]
-                    lm.copy_page(self.cache_k, self.cache_v, cow_src, dst)
-                    prefix_len += cow_len
-                    self._stats["cow_copies"] += 1
-                last = self._prefill(req, pages, rng, prefix_len)
+                if req.kind == "decode_kv":
+                    # Inject the shipped KV pages in place; skip prefill
+                    # compute.
+                    kv_k, kv_v = req.kv
+                    req.kv = None  # free the host copy promptly
+                    src = kv_k.shape[1]
+                    lm.inject_kv_pages(self.cache_k, self.cache_v,
+                                       pages[:src], kv_k, kv_v)
+                    last = int(req.first_token)
+                    # no prefill here, so stamp the admission wait itself
+                    qw = max(0.0, time.monotonic() - req.submitted_at)
+                    self._span(req, "llm.queue", req.submitted_wall,
+                               req.submitted_wall + qw,
+                               wait_s=round(qw, 6))
+                else:
+                    if cow_src is not None:
+                        # COW boundary page: duplicate the diverging
+                        # block's page into this sequence's first fresh
+                        # page, then prefill only past the shared slots.
+                        # Slots >= cow_len hold the OTHER sequence's KV,
+                        # but the suffix prefill overwrites every one of
+                        # them before attention reads it (null-page
+                        # invariant).
+                        dst = pages[len(matched)]
+                        lm.copy_page(self.cache_k, self.cache_v, cow_src,
+                                     dst)
+                        prefix_len += cow_len
+                        self._stats["cow_copies"] += 1
+                        self._m["cow_copies"].inc()
+                    last = self._prefill(req, pages, rng, prefix_len)
             except Exception as e:  # noqa: BLE001 — surface to caller
                 self.allocator.free(pages)
                 req.out_queue.put(e)
                 req.out_queue.put(None)
+                self._close_request_span(req, ok=False, error=repr(e))
                 continue
             finally:
                 if cow_src is not None:
                     self.allocator.free([cow_src])  # drop the copy pin
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and req.kind == "normal":
                 # commit hit/lookup accounting only on successful admission
+                # (a request bouncing off a full pool retries its match)
                 self.prefix_cache.note_lookup(n, prefix_len)
+                self._m["prefix_lookup"].inc(n)
                 self._stats["prefill_tokens_saved"] += prefix_len
-            # every full prompt page is now index-able for later prompts
-            # sharing the prefix
+                if prefix_len:
+                    self._m["prefix_hit"].inc(prefix_len)
+                    self._m["prefill_saved"].inc(prefix_len)
+            # every full prompt page — freshly computed or injected — is
+            # now index-able for later prompts sharing the prefix
             self._register_blocks(req.prompt_tokens, pages)
             slot = _Slot(request=req, pages=pages,
                          num_tokens=len(req.prompt_tokens),
                          last_token=last, rng=rng)
             if last in req.params.stop_token_ids:
+                self._finish_request(req)
                 req.out_queue.put(None)
                 self.allocator.free(pages)
             else:
                 slot.generated.append(last)
-                self._emit(slot, last)
+                if req.kind == "decode_kv":
+                    # the prefill engine already delivered this token to
+                    # the caller; count it, don't re-emit
+                    self._stats["tokens_generated"] += 1
+                    req.produced += 1
+                else:
+                    self._emit(slot, last)
                 if req.produced >= req.params.max_tokens:
+                    self._finish_request(req)
                     req.out_queue.put(None)
                     self.allocator.free(pages)
                 else:
@@ -423,9 +765,31 @@ class LLMEngine:
                 self._tensor(slot_positions), self.model_cfg)
         out = self._sample_one(logits.cpu().numpy(), req.params, rng)
         self._stats["prefills"] += 1
-        self._stats["admitted"] += 1
-        self._prefill_times.append(time.monotonic() - t0)
+        dt = time.monotonic() - t0
+        self._prefill_times.append(dt)
         self._queue_waits.append(t0 - req.submitted_at)
+        self._stats["admitted"] += 1
+        self._m["prefills"].inc()
+        self._m["admitted"].inc()
+        tid = self._trace_id(req)
+        self._m["prefill_t"].observe(dt, exemplar=tid)
+        qw = max(0.0, t0 - req.submitted_at)
+        self._m["queue_wait"].observe(qw, exemplar=tid)
+        if req.trace_ctx is not None:
+            w_end = time.time()
+            self._span(req, "llm.queue", req.submitted_wall,
+                       req.submitted_wall + qw, wait_s=round(qw, 6))
+            self._span(req, "llm.prefill", w_end - dt, w_end, tokens=n,
+                       prefix_len=prefix_len, resumed=bool(req.preempts))
+        if req.preempts:
+            events.emit(
+                "llm.resume",
+                message=f"request {req.request_id} resumed after "
+                        f"preemption (prefix_len={prefix_len})",
+                data={"request_id": req.request_id,
+                      "preempts": req.preempts,
+                      "prefix_len": prefix_len},
+                trace_id=tid)
         return out
 
     def _reserve(self, n: int) -> bool:
@@ -440,8 +804,11 @@ class LLMEngine:
                 if pc is not None else None
             if hit is None:
                 return False
-            self.allocator.reclaim(hit[0])
+            page, klass = hit
+            self.allocator.reclaim(page)
             self._stats["page_evictions"] += 1
+            self._m["page_evictions"].inc()
+            self._m["cache_evictions"].inc(1, {"class": klass})
         return True
 
     def _register_blocks(self, tokens: List[int], pages: List[int]) -> None:
@@ -449,6 +816,179 @@ class LLMEngine:
             return
         cached = self.prefix_cache.insert(tokens, pages)
         self.allocator.mark_cached(cached)
+        self._maybe_seal(tokens)
+
+    # ------------------------- KV tier -------------------------------------
+
+    def kv_prehydrate(self, roots: List[str]) -> None:
+        """Ask the engine to pull these family spines from the KV tier
+        (warm start).  Thread-safe: roots queue through _hydrate_q and the
+        scheduler thread performs the pool mutation in
+        _drain_hydrations."""
+        self.start()
+        for r in roots or ():
+            self._hydrate_q.put(str(r))
+
+    def _tier_expect(self) -> dict:
+        # the blob header's dtype names are numpy's ("bfloat16"), never
+        # torch's ("torch.bfloat16"): blobs cross packages
+        return {"page_size": self.cfg.page_size,
+                "layers": self.model_cfg.n_layers,
+                "kv_heads": self.model_cfg.n_kv_heads,
+                "head_dim": self.model_cfg.head_dim,
+                "dtype": dtype_name(self.cache_k.dtype)}
+
+    def _kv_event(self, kind: str, message: str, data: Dict[str, Any],
+                  req: Optional[_Request], severity: str = "info") -> None:
+        if req is not None:
+            data["request_id"] = req.request_id
+        events.emit(kind, severity=severity, message=message, data=data,
+                    trace_id=self._trace_id(req),
+                    # identity-bearing events must not merge
+                    coalesce_s=0.0 if req is not None else 1.0)
+
+    def _kv_fallback(self, reason: str,
+                     req: Optional[_Request] = None) -> None:
+        self._stats["kv_pull_fallbacks"] += 1
+        self._m["kv_pull_fallbacks"].inc(tags={"reason": reason})
+        self._kv_event("kv.pull_fallback",
+                       f"KV tier pull fell back to cold prefill ({reason})",
+                       {"reason": reason}, req, severity="warning")
+
+    def _note_kv_pull(self, pages: int,
+                      req: Optional[_Request] = None) -> None:
+        self._stats["kv_pulls"] += 1
+        self._stats["kv_pull_pages"] += pages
+        self._m["kv_pulls"].inc()
+        self._m["kv_pull_pages"].inc(pages)
+        self._kv_event("kv.pull",
+                       f"hydrated {pages} KV pages from the store tier",
+                       {"pages": pages}, req)
+
+    def _extract_pages(self, pages: List[int]):
+        """Host copies of the given pages' KV (seal extraction).  Runs on
+        the scheduler thread; registered full pages are append-only (COW
+        duplicates into fresh pages, suffix prefill writes positions past
+        the registered prefix), so the read is not torn."""
+        return lm.extract_pages(self.cache_k, self.cache_v, pages)
+
+    def _maybe_seal(self, tokens: List[int], force: bool = False) -> None:
+        tier, pc = self.kv_tier, self.prefix_cache
+        if tier is None or pc is None:
+            return
+        if tier.maybe_seal(pc, self._extract_pages, tokens, force=force):
+            self._stats["kv_seals"] += 1
+            self._m["kv_seals"].inc()
+
+    def _maybe_tier_pull(self, tokens: List[int],
+                         req: Optional[_Request] = None):
+        """Admission-path pull: hydrate this prompt's family spine from
+        the tier when the store holds more of it than the local pool.
+        Every failure is a typed fallback to cold prefill, never an
+        admission error.  Returns ``(outcome, pages_hydrated)`` where
+        outcome is None (prompt too short to ever pull), "miss" (family
+        never sealed), "resident" (pool already covers the blob),
+        "hydrated", or the typed KVPullError reason."""
+        tier, pc = self.kv_tier, self.prefix_cache
+        ps = self.cfg.page_size
+        cap = (len(tokens) - 1) // ps  # ≥1 suffix token stays to prefill
+        if cap <= 0:
+            return None, 0
+        root_hex = pc.root_digest_for(tokens, ps)
+        rec = tier.lookup_for_pull(root_hex)
+        if rec is None:
+            # never sealed: plain cold traffic, not a fallback
+            return "miss", 0
+        local = pc.peek_match_tokens(tokens) // ps
+        if min(int(rec.get("blocks", 0)), cap) <= local:
+            return "resident", 0  # the pool already covers the blob
+        try:
+            spine, kv_k, kv_v = tier.pull(root_hex, rec=rec,
+                                          expect=self._tier_expect())
+        except KVPullError as e:
+            self._kv_fallback(e.reason, req=req)
+            return e.reason, 0
+        n = self._hydrate_spine(spine, kv_k, kv_v, limit_tokens=tokens,
+                                req=req)
+        if n is None:
+            return "no_pages", 0  # _hydrate_spine already logged fallback
+        if n > 0:
+            self._note_kv_pull(n, req=req)
+            return "hydrated", n
+        return "resident", 0
+
+    def _drain_hydrations(self) -> bool:
+        """Scheduler-thread half of kv_prehydrate: pull queued family
+        roots and hydrate their full spines."""
+        tier, pc = self.kv_tier, self.prefix_cache
+        did = False
+        while tier is not None and pc is not None:
+            try:
+                root_hex = self._hydrate_q.get_nowait()
+            except queue_mod.Empty:
+                break
+            rec = tier.lookup(root_hex)
+            if rec is None:
+                continue  # nothing sealed under that root (yet)
+            try:
+                spine, kv_k, kv_v = tier.pull(root_hex, rec=rec,
+                                              expect=self._tier_expect())
+            except KVPullError as e:
+                self._kv_fallback(e.reason)
+                continue
+            n = self._hydrate_spine(spine, kv_k, kv_v)
+            if n:
+                did = True
+                self._note_kv_pull(n)
+        return did
+
+    def _hydrate_spine(self, spine: List[int], kv_k, kv_v,
+                       limit_tokens: Optional[List[int]] = None,
+                       req: Optional[_Request] = None) -> Optional[int]:
+        """Scatter a pulled spine's missing blocks into fresh pages and
+        register them cached-resident; returns pages hydrated (0 = all
+        resident / nothing usable, None = the pool couldn't cover the
+        scatter — a "no_pages" fallback).  With ``limit_tokens``
+        (admission path) only the blocks that are a true prefix of that
+        prompt are hydrated, capped so ≥1 suffix token remains to
+        prefill."""
+        pc = self.prefix_cache
+        ps = self.cfg.page_size
+        nblk = int(kv_k.shape[1])
+        m = min(nblk, self.max_pages_per_seq)
+        if limit_tokens is not None:
+            cap = min(m, (len(limit_tokens) - 1) // ps)
+            m = 0
+            while (m < cap and list(spine[m * ps:(m + 1) * ps])
+                   == [int(t) for t in limit_tokens[m * ps:(m + 1) * ps]]):
+                m += 1
+        if m <= 0:
+            return 0
+        probe = list(spine[:m * ps]) + [0]  # sentinel suffix token: _walk
+        # caps at (n-1)//ps, so this matches exactly the m spine blocks
+        resident = pc.match(probe)
+        k_res = len(resident)
+        if k_res >= m:
+            return 0
+        need = m - k_res
+        # pin the resident prefix BEFORE reserving — eviction inside
+        # _reserve must not reclaim the chain we're extending
+        self.allocator.retain(resident)
+        if not self._reserve(need):
+            self.allocator.free(resident)
+            self._kv_fallback("no_pages", req=req)
+            return None
+        fresh = self.allocator.allocate(need)
+        lm.inject_kv_pages(self.cache_k, self.cache_v, fresh,
+                           kv_k[:, k_res:m], kv_v[:, k_res:m])
+        cached = pc.insert(list(spine[:m * ps]), resident + fresh)
+        self.allocator.mark_cached(cached)
+        # release both the fresh allocation and the resident pins: every
+        # spine page ends cached-resident, exactly like a finished
+        # sequence's pages — the next match_cow retains them as a hit
+        self.allocator.free(fresh)
+        self.allocator.free(resident)
+        return need
 
     def _preempt(self, i: int, s: _Slot) -> None:
         """Evict a running sequence (recompute preemption): accepted tokens
@@ -460,10 +1000,28 @@ class LLMEngine:
         # KV is resident exactly for positions < num_tokens
         self._register_blocks(seq[:s.num_tokens], s.pages)
         req.prompt_tokens = seq
+        req.kind = "normal"
+        req.kv = None
+        req.first_token = None
         self.allocator.free(s.pages)
         self._slots[i] = None
         self._stats["preempted"] += 1
+        self._m["preempted"].inc()
         req.preempts += 1
+        if req.trace_ctx is not None:
+            now_w = time.time()
+            self._span(req, "llm.preempt", now_w, now_w, ok=False,
+                       tokens=s.num_tokens, produced=req.produced)
+        # identity, not an anonymous count: the event links into the
+        # request's own trace
+        events.emit("llm.preempt",
+                    message=f"request {req.request_id} evicted from its "
+                            f"slot (recompute preemption, {s.num_tokens} "
+                            f"tokens resident)",
+                    data={"tokens": s.num_tokens,
+                          "request_id": req.request_id,
+                          "produced": req.produced},
+                    trace_id=self._trace_id(req))
         self._waiting.queue.appendleft(req)  # type: ignore[attr-defined]
 
     def _shared_pages(self, s: _Slot) -> int:
@@ -520,7 +1078,11 @@ class LLMEngine:
         if any(s is None for s in self._slots):
             try:
                 head = self._waiting.queue[0]  # type: ignore[attr-defined]
-                n_pages = len(head.prompt_tokens) // self.cfg.page_size + 1
+                n = len(head.prompt_tokens)
+                if head.kind == "prefill_only":
+                    n_pages = -(-n // self.cfg.page_size)
+                else:
+                    n_pages = n // self.cfg.page_size + 1
                 can_admit = (self.allocator.num_free()
                              + self.allocator.num_resident()) >= n_pages
             except IndexError:
@@ -559,6 +1121,7 @@ class LLMEngine:
             # ONE host round trip for the whole burst
             rows = torch.stack(steps).cpu().numpy()
             self._stats["decode_steps"] += burst
+            self._m["decode_steps"].inc(burst)
             for row in rows:
                 for i, s in active_slots:
                     if self._slots[i] is not s:
@@ -570,6 +1133,7 @@ class LLMEngine:
             pos_dev, active_dev, self.model_cfg)
         logits_np = logits.cpu().numpy()
         self._stats["decode_steps"] += 1
+        self._m["decode_steps"].inc()
         for i, s in active_slots:
             tok = self._sample_one(logits_np[i], s.request.params, s.rng)
             self._accept_token(i, s, tok)
@@ -593,6 +1157,7 @@ class LLMEngine:
         """Finish a sequence: register its full pages (prompt AND generated
         KV) and release; cached pages stay resident until the pool
         reclaims them."""
+        self._finish_request(s.request)
         s.request.out_queue.put(None)
         seq = s.request.prompt_tokens + s.generated
         self._register_blocks(seq[:s.num_tokens], s.pages)
@@ -606,6 +1171,10 @@ class LLMEngine:
         req.produced += 1  # survives preemption (len(generated) does not)
         if req.first_token_at is None:
             req.first_token_at = time.monotonic()
+            self._m["ttft"].observe(
+                req.first_token_at - req.submitted_at,
+                exemplar=self._trace_id(req))
+        self._m["tokens"].inc()
         req.out_queue.put(int(token))
 
     def _sample_one(self, logits: np.ndarray, params: SamplingParams,

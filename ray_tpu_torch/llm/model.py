@@ -15,14 +15,15 @@ causality alone already excludes the columns >= true_len, and the K/V that
 padded rows write at positions >= true_len are overwritten by decode before
 any read (decode masks ``tpos <= position``).  So the logits at
 ``true_len - 1`` and every cache entry later read are the same function.
-The prefix-hit prefill, the decode steps and ``copy_page`` are plain torch
-ops, as JAX leaves them to XLA.
+The prefix-hit prefill, the decode steps, ``copy_page`` and the page
+scatter and gather of the P/D handoff and the KV tier (``inject_kv_pages``,
+``extract_pages``) are plain torch ops, as JAX leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -206,3 +207,35 @@ def copy_page(cache_k: torch.Tensor, cache_v: torch.Tensor, src: int,
     every slot past the divergence point before any attention reads it."""
     cache_k[:, dst] = cache_k[:, src]
     cache_v[:, dst] = cache_v[:, src]
+
+
+@torch.no_grad()
+def inject_kv_pages(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    idx: Sequence[int], kv_k, kv_v) -> None:
+    """Scatter shipped KV pages into the paged cache, in place (the P/D
+    decode side and KV-tier hydration).
+
+    kv_k, kv_v: [n_layers, len(idx), page_size, n_kv, head_dim] tensors on
+    any device, or numpy arrays (one host-to-device copy each); idx: the
+    destination pages.  The JAX package pads idx and the pages to
+    ``max_pages_per_seq`` only so that XLA compiles its scatter once, and
+    the padded rows land in the null page 0; here only the real pages are
+    written and page 0 never."""
+    dev = cache_k.device
+    index = torch.as_tensor(list(idx), dtype=torch.long, device=dev)
+    for cache, kv in ((cache_k, kv_k), (cache_v, kv_v)):
+        if not isinstance(kv, torch.Tensor):
+            kv = torch.tensor(kv)  # a copy: numpy arrays may be read-only
+        cache.index_copy_(1, index, kv.to(dev, cache.dtype))
+
+
+@torch.no_grad()
+def extract_pages(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  pages: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host copies of the given pages' KV across all layers: [n_layers,
+    len(pages), page_size, n_kv, head_dim] each (the P/D prefill side and
+    KV-tier sealing)."""
+    index = torch.as_tensor(list(pages), dtype=torch.long,
+                            device=cache_k.device)
+    return (cache_k.index_select(1, index).cpu(),
+            cache_v.index_select(1, index).cpu())

@@ -122,7 +122,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 8
-    banned = {"jax", "jaxlib", "optax", "ray_tpu"}
+    # ml_dtypes comes with JAX and is absent where the port runs on the card
+    banned = {"jax", "jaxlib", "optax", "ray_tpu", "ml_dtypes"}
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
     assert bad == []
@@ -140,6 +141,13 @@ def test_entry_points_raise_without_a_gpu(model):
         init_cache(CacheConfig(n_layers=1, n_kv_heads=1, head_dim=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.llama_params_from_jax({"x": np.zeros(2, np.float32)})
+    from ray_tpu_torch.llm.pd_disagg import DecodeServer, PrefillServer
+    from ray_tpu_torch.llm.server import LLMConfig, LLMServer
+
+    cfg = LLMConfig(model_loader=lambda: (state, tcfg))
+    for server in (LLMServer, PrefillServer, DecodeServer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            server(cfg)
 
 
 def test_byte_tokenizer_round_trip():
