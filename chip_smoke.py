@@ -17,7 +17,7 @@ Phases, each fatal on failure:
   3. kernel, plain-version, bound and library (SDPA) times at the engine's
      prefill shapes and at the trainer's attention shape; the trainer-shape
      times are read twice in the run, before the engine and after the
-     trainer;
+     trainers;
   4. ``llama.apply`` at ``__graft_entry__.entry()``'s config: logits through
      the kernel against logits through the plain attention;
   5. the serving engine at full width (the serving model of ``bench.py``):
@@ -44,7 +44,16 @@ Phases, each fatal on failure:
      each of the three wrappers launches 12 times a step, and a few steps
      are timed and profiled; the profiled step shows 12 launches of each
      tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
-     (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel.
+     (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel;
+  8. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
+     seq 4096 (``run_moe_trainer``), between two readings of the kernels
+     at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
+     and aux against the plain attention (on the tokens both forwards
+     route alike), the share of choices dropped by capacity, the first
+     step against the plain attention, the loss falling, 2 / 1 / 1
+     launches a step, timed and profiled steps with peak memory beside
+     its reckoning, and the first step on a world-size-1 NCCL mesh
+     through the zigzag dispatch, equal to the step without the mesh.
 The last three lines are the kernels' JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no result,
@@ -174,11 +183,13 @@ def _pairs(sq, sk, causal):
     return sq * sk
 
 
-def attention_work(bh, sq, sk, d, causal, itemsize):
+def attention_work(bh, sq, sk, d, causal, itemsize, bh_kv=None):
     """(operations, bytes) one flash-forward call needs: 4*d per unmasked
-    (query, key) pair; q, k, v read once, out and lse written once."""
+    (query, key) pair; q, k, v (``bh_kv`` heads, ``bh`` unless GQA) read
+    once, out and lse written once."""
+    bh_kv = bh if bh_kv is None else bh_kv
     ops = 4 * d * _pairs(sq, sk, causal) * bh
-    nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * itemsize + bh * sq * 4
+    nbytes = (2 * bh * sq * d + 2 * bh_kv * sk * d) * itemsize + bh * sq * 4
     return ops, nbytes
 
 
@@ -268,6 +279,7 @@ def check_kernels(report):
                           dtype))
         cases.append(("ragged", 1, 4, 2, 100, 100, 32, True, dtype))
         cases.append(("ragged", 2, 4, 1, 77, 130, 64, False, dtype))
+        cases.append(("mixtral", 1, 32, 8, 4096, 4096, 128, True, dtype))
     rows = []
     for name, b, h, hkv, sq, sk, d, causal, dtype in cases:
         q, k, v = make_qkv(gen, b, h, hkv, sq, sk, d, dtype)
@@ -307,6 +319,9 @@ BWD_CASES = [  # (name, b, h, hkv, sq, sk, d, causal)
     # causal with seq_q < seq_k: KV tiles no query sees (dK, dV exactly 0)
     # and a Q tile partly past seq_q
     ("ragged_causal_wide", 1, 4, 2, 77, 130, 64, True),
+    # the MoE trainer's attention: 4:1 GQA at head_dim 128, 16384 terms
+    # summed per key in dK/dV
+    ("mixtral", 1, 32, 8, 4096, 4096, 128, True),
 ]
 
 
@@ -438,33 +453,59 @@ def kernel_device_ms(fn, names, iters: int = 10):
         fn, iters, lambda rows: all(ms > 0 for ms in per_call(rows).values())))
 
 
+def launch_counts():
+    """The three wrappers' host launch counters."""
+    from ray_tpu_torch.ops import attention
+
+    return {"flash_fwd": attention.flash_forward.launches,
+            **attention.flash_backward.launches}
+
+
+def zero_launch_counts():
+    from ray_tpu_torch.ops import attention
+
+    attention.flash_forward.launches = 0
+    for key in attention.flash_backward.launches:
+        attention.flash_backward.launches[key] = 0
+
+
 def kernel_counts(rows, names):
     """Launches of each kernel in ``names`` among profiled device events
     (a name counts the events whose demangled name contains it)."""
     return {n: sum(c for k, _, c in rows if n in k) for n in names}
 
 
-def time_trainer_attention(report, reading: int):
-    """The three kernels at the trainer's attention shape (batch 12, 12
-    heads, seq 1024, head_dim 64, bf16, causal): device ms per call of the
-    bf16 kernels (``BF16_KERNELS``, by name from the profiler) against the
-    plain versions, SDPA forward and SDPA backward under autograd (the
-    library yardsticks, timed only), and the bounds.  Run twice in one
-    script (``reading`` 1 and 2): a stand-alone kernel time moves by up to
-    16% between readings on this machine."""
+# (name, batch, heads, kv_heads, seq, head_dim) of the attention the main
+# training paths give the kernels, bf16 and causal: bench.py's GPT-2 124M
+# trainer and Mixtral 8x7B's (32 query heads on 8 KV heads, head_dim 128)
+TRAINER_SHAPE = ("trainer", 12, 12, 12, 1024, 64)
+MIXTRAL_SHAPE = ("mixtral", 1, 32, 8, 4096, 128)
+
+
+def time_attention(report, reading: int, shape=TRAINER_SHAPE):
+    """The three kernels at one training path's attention shape: device ms
+    per call of the bf16 kernels (``BF16_KERNELS``, by name from the
+    profiler) against the plain versions, SDPA forward and SDPA backward
+    under autograd (the library yardsticks, timed only; GQA K/V repeated
+    outside the timed call), and the bounds.  Run twice in one script
+    (``reading`` 1 and 2): a stand-alone kernel time moves by up to 16%
+    between readings on this machine."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention
 
-    b, h, s, d, dtype = 12, 12, 1024, 64, torch.bfloat16
-    bh = b * h
+    name, b, h, hkv, s, d = shape
+    dtype = torch.bfloat16
+    bh, bh_kv = b * h, b * hkv
     gen = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v = make_qkv(gen, 1, bh, bh, s, s, d, dtype)
+    q, k, v = make_qkv(gen, b, h, hkv, s, s, d, dtype)
     d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     scale = 1.0 / math.sqrt(d)
     out, lse = attention.flash_forward(q, k, v, True, scale)
-    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, d_out))
+    q4, do4 = (x.view(b, h, s, d) for x in (q, d_out))
+    k4, v4 = (x.view(b, hkv, s, d).repeat_interleave(h // hkv, dim=1)
+              for x in (k, v))
     leaves = [x.clone().requires_grad_() for x in (q4, k4, v4)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               scale=scale)
@@ -497,34 +538,35 @@ def time_trainer_attention(report, reading: int):
     errs = [float((a.float() - w.float()).abs().max())
             for a, w in zip(got, want)]
     rows = {}
-    for name, plain, lib, err in (
+    for kname, plain, lib, err in (
             ("flash_fwd", "plain_fwd", "sdpa_fwd",
              float((out.float() - ref_out.float()).abs().max())),
             ("flash_bwd_dkv", "plain_bwd", "sdpa_bwd", max(errs[1:])),
             ("flash_bwd_dq", "plain_bwd", "sdpa_bwd", errs[0])):
-        if name == "flash_fwd":
-            ops, nbytes = attention_work(bh, s, s, d, True, 2)
+        if kname == "flash_fwd":
+            ops, nbytes = attention_work(bh, s, s, d, True, 2, bh_kv)
         else:
-            ops, nbytes = attention_bwd_work(name, bh, bh, s, s, d, True, 2)
+            ops, nbytes = attention_bwd_work(kname, bh, bh_kv, s, s, d,
+                                             True, 2)
         bms, by = bound_ms(ops, nbytes, "bfloat16")
-        for key in (name, plain):
+        for key in (kname, plain):
             if dev[key] <= 0:
                 raise SystemExit(f"the profiler saw no kernel of {key} at the "
-                                 f"trainer shape")
+                                 f"{name} shape")
         lib_ms = measured(dev[lib])
-        rows[name] = {"ms": dev[name], "plain_ms": dev[plain],
-                      "library_ms": lib_ms, "bound_ms": bms,
-                      "bound_by": by, "ops": ops, "bytes": nbytes,
-                      "tflops": ops / dev[name] / 1e9,
-                      "bound_share": bms / dev[name], "max_abs_err": err}
-        print(f"time #{reading} {name} ({BF16_KERNELS[name]}) trainer shape "
-              f"b{b} h{h} s{s} d{d} bf16 causal, device ms per call: kernel "
-              f"{dev[name]:.4f} ({ops / dev[name] / 1e9:.1f} TFLOP/s, "
-              f"{bms / dev[name]:.3f} of bound), plain {dev[plain]:.4f} "
-              f"({plain}), sdpa {fmt_ms(lib_ms)} ({lib}), bound {bms:.5f} "
-              f"({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB); max abs err vs "
-              f"plain {err:.3e}", flush=True)
-    report.setdefault("trainer_kernel_times", []).append(rows)
+        rows[kname] = {"ms": dev[kname], "plain_ms": dev[plain],
+                       "library_ms": lib_ms, "bound_ms": bms,
+                       "bound_by": by, "ops": ops, "bytes": nbytes,
+                       "tflops": ops / dev[kname] / 1e9,
+                       "bound_share": bms / dev[kname], "max_abs_err": err}
+        print(f"time #{reading} {kname} ({BF16_KERNELS[kname]}) {name} shape "
+              f"b{b} h{h}/{hkv} s{s} d{d} bf16 causal, device ms per call: "
+              f"kernel {dev[kname]:.4f} ({ops / dev[kname] / 1e9:.1f} "
+              f"TFLOP/s, {bms / dev[kname]:.3f} of bound), plain "
+              f"{dev[plain]:.4f} ({plain}), sdpa {fmt_ms(lib_ms)} ({lib}), "
+              f"bound {bms:.5f} ({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB)"
+              f"; max abs err vs plain {err:.3e}", flush=True)
+    report.setdefault(f"{name}_kernel_times", []).append(rows)
     return rows
 
 
@@ -1384,7 +1426,6 @@ def run_trainer(report):
     import torch
 
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.ops import attention
     from ray_tpu_torch.train import step as train
 
     cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)  # bench.py main()
@@ -1447,26 +1488,20 @@ def run_trainer(report):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n_steps = 5
-    attention.flash_forward.launches = 0
-    for key in attention.flash_backward.launches:
-        attention.flash_backward.launches[key] = 0
+    zero_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
-    def counts():
-        return {"flash_fwd": attention.flash_forward.launches,
-                **attention.flash_backward.launches}
-
     per_step = []  # each kernel's launches in each step (host counters)
     start.record()
     for _ in range(n_steps):
-        before = counts()
+        before = launch_counts()
         state, m = step(state, tokens)
-        per_step.append({k: n - before[k] for k, n in counts().items()})
+        per_step.append({k: n - before[k] for k, n in launch_counts().items()})
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = launch_counts()
     step_ms = start.elapsed_time(end) / n_steps
     peak_bytes = torch.cuda.max_memory_allocated()
     tok_s = BATCH * SEQ / (step_ms / 1e3)
@@ -1518,6 +1553,324 @@ def run_trainer(report):
     return launches
 
 
+# Mixtral 8x7B's widths (MoEConfig.mixtral_8x7b()) cut to one layer; one
+# sequence of 4096 tokens.  State costs 16 B a parameter (the f32 weight,
+# its gradient, Adam's two moments) and the update three more f32
+# temporaries (m_hat, denom, u): 28 B in all.  Two layers would need 88.6 GB
+# of it, more than the card's 80 GB.
+MOE_LAYERS, MOE_BATCH, MOE_SEQ = 1, 1, 4096
+MOE_BYTES_PER_PARAM = 28
+# the aux loss through the kernels against the plain attention's: one bf16
+# ulp in the attention can flip a near-tied token's top choice, which
+# moves aux by ~E * p_e / tokens (~2.4e-4 here); 1% allows ~40 flips
+MOE_AUX_RTOL = 0.01
+# A token routed alike by both forwards (same experts, same capacity
+# verdicts) has logits within APPLY_TOL; one routed otherwise gets other
+# experts' outputs and logits unrelated to the other forward's, so the
+# logits are compared on the tokens routed alike, and the share routed
+# otherwise is bounded: at most 1.3% of 4096 tokens in the CPU emulation
+# of the kernels' rounding (24-29 tokens with other experts and 8-24 with
+# other capacity verdicts, three seeds), 3% with a margin.
+MOE_REROUTED_MAX = 0.03
+# The MoE's first step through the kernels against the plain attention's.
+# A bf16 ulp in the attention output moves near-tied tokens across the
+# router's top-2 cut, and a token sent to another expert changes its CE by
+# O(1): in the CPU emulation of the kernels' rounding at a Mixtral-shaped
+# cut (tests/test_torch_attention_tc_numerics.py) 8-10 of 1024 tokens
+# moved and the mean loss by up to 2.3e-3, 24-29 of 4096 tokens and up to
+# 7.3e-4 (three seeds each), past the GPT-2 trainer's 1e-3.  The grad norm
+# moved by at most 5.2e-4 of its value, inside STEP_NORM_RTOL.
+MOE_STEP_LOSS_TOL = 5e-3
+
+
+def moe_param_counts(cfg):
+    """Parameters of the MoE model by part, and those one token's forward
+    uses: attention, the router, k/E of the experts and the LM head (6 x
+    that per token is the model FLOP count; the dense dispatch and
+    combine, the capacity padding and attention's s^2 term are not
+    counted, as ``bench.py`` counts none of them)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+    router = d * cfg.n_experts
+    experts = 3 * cfg.n_experts * d * cfg.d_ff
+    norms = 2 * d
+    per_layer = attn + router + experts + norms
+    embed = head = cfg.vocab_size * d
+    total = cfg.n_layers * per_layer + embed + head + d
+    active = (cfg.n_layers * (attn + router + experts
+                              * cfg.experts_per_token // cfg.n_experts)
+              + head)
+    return {"attention": attn, "router": router, "experts": experts,
+            "per_layer": per_layer, "embed_and_head": embed + head,
+            "total": total, "active_per_token": active}
+
+
+def moe_drop_share(cfg, h, router_w):
+    """Share of (token, choice) pairs over their expert's capacity, from
+    the routing of h (n, d), in plain torch: top-k of the f32 router
+    softmax, each choice's position in its expert's buffer, first choices
+    before second ones."""
+    import torch
+
+    from ray_tpu_torch.models import moe
+
+    probs = torch.softmax(h.float() @ router_w.float(), dim=-1)
+    top = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
+    chosen = top.t().reshape(-1)  # choice-major
+    onehot = torch.nn.functional.one_hot(chosen, cfg.n_experts)
+    before = (onehot.cumsum(dim=0) - onehot).gather(1, chosen[:, None])
+    cap = moe.expert_capacity(cfg, h.shape[0])
+    return float((before >= cap).float().mean())
+
+
+def run_moe_trainer(report):
+    """The Mixtral MoE trainer on the card at Mixtral 8x7B's widths, one
+    layer, batch 1 x seq 4096: logits against the plain attention, the
+    first step against the plain attention, the loss falling, timed and
+    profiled steps with their launches, and the step on a world-size-1
+    mesh through the zigzag dispatch.  Returns the kernels' launches over
+    the counted, timed steps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama, moe
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.train import step as train
+
+    cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(),
+                              n_layers=MOE_LAYERS)
+    counts = moe_param_counts(cfg)
+    n_params, n_tok = counts["total"], MOE_BATCH * MOE_SEQ
+    two = moe_param_counts(dataclasses.replace(cfg, n_layers=2))["total"]
+    print(f"moe trainer: Mixtral 8x7B widths, {cfg.n_layers} layer: "
+          f"{n_params} params ({counts['per_layer']} a layer, experts "
+          f"{counts['experts']}, embed + head {counts['embed_and_head']}); "
+          f"state and update at {MOE_BYTES_PER_PARAM} B a param "
+          f"{n_params * MOE_BYTES_PER_PARAM / 1e9:.1f} GB (2 layers "
+          f"{two * MOE_BYTES_PER_PARAM / 1e9:.1f} GB)", flush=True)
+
+    def gen(offset=0):
+        return torch.Generator(device="cuda").manual_seed(6 + offset)
+
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1),
+                           generator=gen(100), device="cuda")
+
+    def fresh(opt):  # the same weights every time: init from one seed
+        params = moe.init(cfg, gen(), device="cuda")
+        return {"params": params, "opt_state": opt.init(params), "step": 0}
+
+    # (a) the forward through the kernels against the plain attention on
+    # the tokens both route alike, and the share of choices dropped by
+    # capacity in the layer
+    params = moe.init(cfg, gen(), device="cuda")
+    inp = tokens[:, :-1]
+    with torch.inference_mode():
+        before = attention.flash_forward.launches
+        flash, aux = moe.apply(params, inp, cfg, return_aux=True)
+        launched = attention.flash_forward.launches - before
+        plain, aux_plain = moe.apply(params, inp, cfg, attn_impl="plain",
+                                     return_aux=True)
+        p0 = llama.layer_params(params["layers"], 0)
+        routes = {}
+        for impl in ("flash", "plain"):  # the layer's input, and its routing
+            x = llama._attention_block(
+                cfg, params["embed"][inp].to(torch.bfloat16), p0,
+                llama._positions(MOE_SEQ, None, inp.device),
+                llama._attention(impl))
+            h = llama.rms_norm(x, p0["mlp_norm"], cfg.norm_eps).reshape(
+                -1, cfg.d_model)
+            routes[impl] = moe.route(cfg, h, p0["router"])
+        dropped = moe_drop_share(cfg, h, p0["router"])
+    kept = routes["plain"]["keep"]
+    alike = ((routes["flash"]["top_idx"] == routes["plain"]["top_idx"])
+             & (routes["flash"]["keep"] == kept)).all(dim=-1)
+    rerouted = 1 - float(alike.float().mean())
+    err = float((flash - plain).reshape(-1, cfg.vocab_size)[alike].abs()
+                .max())
+    scale = float(plain.abs().max())
+    tol = APPLY_TOL * max(1.0, scale)
+    d_aux = abs(float(aux) - float(aux_plain))
+    print(f"moe.apply Mixtral widths bf16, s{MOE_SEQ}: tokens routed "
+          f"otherwise {rerouted:.4f} (max {MOE_REROUTED_MAX}); logits of the "
+          f"rest max abs diff {err:.4e} (tol {tol:.3e}, max |logit| "
+          f"{scale:.3f}); aux {float(aux):.6f} vs {float(aux_plain):.6f} (tol "
+          f"{MOE_AUX_RTOL:.0%}); kernel launches {launched}; choices "
+          f"dropped by capacity {dropped:.4f} (route: "
+          f"{1 - float(kept.float().mean()):.4f})", flush=True)
+    if not (err <= tol and rerouted <= MOE_REROUTED_MAX
+            and bool(torch.isfinite(flash).all())
+            and launched == cfg.n_layers
+            and d_aux <= MOE_AUX_RTOL * abs(float(aux_plain))
+            and abs(dropped - (1 - float(kept.float().mean()))) < 1e-9):
+        raise SystemExit("moe.apply through the kernels disagrees")
+    del params, flash, plain, x, h, p0, routes
+    torch.cuda.empty_cache()
+
+    # (b) the first step through the kernels and through the plain one
+    opt = train.default_optimizer(warmup_steps=1)
+    first = {}
+    for impl in ("plain", "flash"):
+        state = fresh(opt)
+        step = train.make_train_step(moe, cfg, opt, attn_impl=impl)
+        state, m = step(state, tokens)
+        first[impl] = {"loss": m["loss"].item(),
+                       "grad_norm": m["grad_norm"].item()}
+        if impl == "plain":
+            del state, step, m
+            torch.cuda.empty_cache()
+    d_loss = abs(first["flash"]["loss"] - first["plain"]["loss"])
+    d_norm = abs(first["flash"]["grad_norm"] - first["plain"]["grad_norm"])
+    print(f"moe trainer first step, kernels vs plain attention: loss "
+          f"{first['flash']['loss']:.6f} vs {first['plain']['loss']:.6f} "
+          f"(diff {d_loss:.3e}, tol {MOE_STEP_LOSS_TOL:.0e}); grad norm "
+          f"{first['flash']['grad_norm']:.6f} vs "
+          f"{first['plain']['grad_norm']:.6f} (diff {d_norm:.3e}, tol "
+          f"{STEP_NORM_RTOL:.0%}); ln(vocab) {math.log(cfg.vocab_size):.4f}",
+          flush=True)
+    if not (d_loss <= MOE_STEP_LOSS_TOL
+            and d_norm <= STEP_NORM_RTOL * first["plain"]["grad_norm"]
+            and math.isfinite(first["flash"]["loss"])):
+        raise SystemExit("the first MoE step through the kernels disagrees")
+
+    # (c) the loss falls on the repeated batch
+    losses = [first["flash"]["loss"]]
+    for _ in range(4):
+        state, m = step(state, tokens)
+        losses.append(m["loss"].item())
+    print("moe trainer repeated batch, loss per step: "
+          + ", ".join(f"{x:.4f}" for x in losses), flush=True)
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise SystemExit("the MoE loss did not fall on a repeated batch")
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    # (d) timed steps: bench.py's optimizer, warm-up, then counted steps
+    opt = train.default_optimizer()
+    state = train.create_train_state(moe, cfg, opt, gen(), device="cuda")
+    step = train.make_train_step(moe, cfg, opt)
+    for _ in range(2):
+        state, m = step(state, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 5
+    zero_launch_counts()
+    per_step = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n_steps):
+        before = launch_counts()
+        state, m = step(state, tokens)
+        per_step.append({k: n - before[k] for k, n in launch_counts().items()})
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    step_ms = start.elapsed_time(end) / n_steps
+    peak_bytes = torch.cuda.max_memory_allocated()
+    tok_s = n_tok / (step_ms / 1e3)
+    tflops = tok_s * 6 * counts["active_per_token"] / 1e12
+    final_loss = m["loss"].item()
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers}
+    print(f"moe trainer Mixtral widths x {cfg.n_layers} layer (this card): "
+          f"batch {MOE_BATCH} x seq {MOE_SEQ}, {n_steps} steps: {step_ms:.3f}"
+          f" ms per step (host {wall / n_steps * 1e3:.3f} ms), {tok_s:.1f} "
+          f"tokens/s, model {tflops:.3f} TFLOP/s = {tflops / 989:.4f} of 989 "
+          f"TFLOP/s (6 x {counts['active_per_token']} active params a "
+          f"token: attention + router + k/E experts + LM head); peak "
+          f"allocated {peak_bytes / 1e9:.3f} GB (reckoned "
+          f"{n_params * MOE_BYTES_PER_PARAM / 1e9:.1f} GB of state and "
+          f"update); loss {final_loss:.4f}; launches {launches}", flush=True)
+    if any(d != want for d in per_step):
+        raise SystemExit(f"kernel launches per MoE step {per_step}, want "
+                         f"{want} in each")
+    if not math.isfinite(final_loss):
+        raise SystemExit("the MoE trainer's loss is not finite")
+
+    # (e) where one step's device time goes (outside the counted run)
+    rows = device_events(lambda: step(state, tokens))
+    busy = sum(r[1] for r in rows)
+    profiled = kernel_counts(rows, (*BF16_KERNELS.values(), *SCALAR_KERNELS))
+    attn_ms = {k: sum(t for name, t, _ in rows if k in name)
+               for k in BF16_KERNELS.values()}
+    print(f"moe trainer step device busy {busy:.3f} ms of {step_ms:.3f} ms "
+          f"(idle share {1 - busy / step_ms:.3f}); kernel launches in the "
+          f"profiled step {profiled}, their device ms "
+          + ", ".join(f"{k} {t:.3f}" for k, t in attn_ms.items())
+          + "; top: " + "; ".join(
+              f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:8]),
+          flush=True)
+    want_profiled = {**{BF16_KERNELS[k]: n for k, n in want.items()},
+                     **{k: 0 for k in SCALAR_KERNELS}}
+    if profiled != want_profiled:
+        raise SystemExit(f"the profiled MoE step launched {profiled}, want "
+                         f"{want_profiled}")
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    # (f) the mesh on the card: a world-size-1 NCCL group and the zigzag
+    # dispatch, which at sp 1 is the flash kernels: the first step's loss
+    # equals (b)'s bit for bit
+    os.makedirs(OUT_DIR, exist_ok=True)
+    store_dir = tempfile.mkdtemp(dir=OUT_DIR)
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = create_mesh(MeshConfig())
+            opt = train.default_optimizer(warmup_steps=1)
+            state = fresh(opt)
+            step = train.make_train_step(moe, cfg, opt, attn_impl="zigzag",
+                                         mesh=mesh)
+            before = launch_counts()
+            state, m = step(state, tokens)
+            mesh_loss = m["loss"].item()
+            mesh_launches = {k: n - before[k]
+                             for k, n in launch_counts().items()}
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"moe trainer on create_mesh(MeshConfig()) (world size 1, NCCL), "
+          f"attn_impl zigzag: first-step loss {mesh_loss:.6f} vs "
+          f"{first['flash']['loss']:.6f} without the mesh; launches "
+          f"{mesh_launches}", flush=True)
+    if mesh_loss != first["flash"]["loss"] or mesh_launches != want:
+        raise SystemExit("the MoE step on the mesh differs from the step "
+                         "without it")
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    report["moe_trainer"] = {
+        "layers": cfg.n_layers, "param_counts": counts,
+        "reckoned_state_bytes": n_params * MOE_BYTES_PER_PARAM,
+        "reckoned_state_bytes_2_layers": two * MOE_BYTES_PER_PARAM,
+        "batch": MOE_BATCH, "seq": MOE_SEQ, "steps": n_steps,
+        "apply_logit_err": err, "apply_logit_tol": tol,
+        "apply_rerouted_share": rerouted,
+        "aux": float(aux), "aux_plain": float(aux_plain),
+        "dropped_share": dropped, "first_step": first,
+        "repeated_batch_losses": losses, "step_ms": step_ms,
+        "host_step_ms": wall / n_steps * 1e3, "tokens_per_s": tok_s,
+        "model_tflops": tflops, "peak_share_989": tflops / 989,
+        "max_memory_allocated": peak_bytes, "final_loss": final_loss,
+        "launches": launches, "device_busy_ms": busy,
+        "idle_share": 1 - busy / step_ms,
+        "profiled_kernel_launches": profiled,
+        "profiled_kernel_ms": attn_ms, "mesh_first_loss": mesh_loss,
+        "top": [{"kernel": k[:90], "ms": t, "count": c}
+                for k, t, c in rows[:12]]}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1550,15 +1903,18 @@ def main() -> int:
     check_kernels(report)
     check_backward(report)
     time_kernels(report)
-    first = time_trainer_attention(report, 1)
+    first = time_attention(report, 1)
     check_apply(report)
     engine_launches = run_engine(report)
     frontend_launches = run_frontends(report)
     trainer_launches = run_trainer(report)
-    second = time_trainer_attention(report, 2)
+    mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
+    moe_launches = run_moe_trainer(report)
+    mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
+    second = time_attention(report, 2)
 
-    # times at the trainer's shape; flash_fwd's launches are its counted
-    # engine run, front-end phase and trainer run
+    # times at the trainer's shape, and at the MoE trainer's under
+    # at_mixtral_shape; launches are the counted runs of every path
     sources = {"flash_fwd": ("flash_fwd.cu", "ray_tpu/ops/attention.py:121"),
                "flash_bwd_dkv": ("flash_bwd.cu",
                                  "ray_tpu/ops/attention.py:280"),
@@ -1567,10 +1923,16 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         row = first[name]
+        by_path = {"trainer": trainer_launches[name],
+                   "moe_trainer": moe_launches[name]}
+        if name == "flash_fwd":
+            by_path = {"engine": engine_launches,
+                       "frontends": frontend_launches, **by_path}
         entry = {"name": name, "route": "cuda",
                  "source": f"ray_tpu_torch/ops/csrc/{src}",
                  "replaces": replaces,
-                 "launches": trainer_launches[name],
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
@@ -1578,13 +1940,15 @@ def main() -> int:
                  "design": DESIGN[name],
                  "ms_readings": [row["ms"], second[name]["ms"]],
                  "library_ms_readings": [row["library_ms"],
-                                         second[name]["library_ms"]]}
+                                         second[name]["library_ms"]],
+                 "at_mixtral_shape": {
+                     key: mixtral[0][name][key]
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "max_abs_err")}}
+        entry["at_mixtral_shape"].update(
+            ms_readings=[r[name]["ms"] for r in mixtral],
+            library_ms_readings=[r[name]["library_ms"] for r in mixtral])
         if name == "flash_fwd":
-            entry["launches"] += engine_launches + frontend_launches
-            entry["launches_by_path"] = {
-                "engine": engine_launches,
-                "frontends": frontend_launches,
-                "trainer": trainer_launches[name]}
             # the JAX serving paths run XLA einsum attention, no Pallas call
             entry["replaces_on_serving_paths"] = "ray_tpu/llm/model.py:41-85"
         kernels.append(entry)

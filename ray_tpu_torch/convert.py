@@ -1,6 +1,6 @@
 """Carry JAX parameter trees (as numpy) into the port unchanged.
 
-The JAX package's Llama and GPT-2 parameters are nested dicts of arrays
+The JAX package's Llama, GPT-2 and MoE parameters are nested dicts of arrays
 with layers stacked on a leading axis; the port keeps that layout and those
 keys, so one walk serves both.  The caller turns the JAX tree into numpy
 (``jax.tree.map(np.asarray, params)``) so that nothing here imports JAX.
@@ -43,3 +43,4 @@ def params_from_jax(tree: Dict, device: DeviceLike = None) -> Dict:
 
 llama_params_from_jax = params_from_jax
 gpt2_params_from_jax = params_from_jax
+moe_params_from_jax = params_from_jax

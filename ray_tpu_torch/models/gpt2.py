@@ -8,8 +8,8 @@ embeddings, pre-LN, tanh-approximate GELU MLP, and the LM head tied to
 ``wte``.  Matmul weights and biases are cast to ``cfg.dtype`` where they
 are used, as in JAX.  Attention goes through ``ops.attention.ATTENTION``:
 "flash" runs the Hopper kernels forward and backward on CUDA tensors and
-their plain versions on CPU tensors.  The sharding specs
-(``param_logical_specs``) come with the ``parallel/`` slice.
+their plain versions on CPU tensors.  ``param_logical_specs`` names each
+parameter's axes for ``parallel.sharding``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from ray_tpu_torch.models.llama import layer_params
 from ray_tpu_torch.models.losses import chunked_softmax_xent, head_logits
 from ray_tpu_torch.ops.attention import ATTENTION
+from ray_tpu_torch.parallel.sharding import logical_spec as L
 
 
 @dataclass(frozen=True)
@@ -56,6 +57,35 @@ class GPT2Config:
     def tiny(vocab_size: int = 512) -> "GPT2Config":
         return GPT2Config(vocab_size=vocab_size, d_model=64, n_layers=2,
                           n_heads=2, max_seq_len=128)
+
+
+def param_logical_specs(cfg: GPT2Config):
+    """Logical sharding spec tree, mirroring init()'s param tree."""
+    layer = {
+        "attn": {
+            "wqkv": L("layers", "embed", "heads"),
+            "bqkv": L("layers", "heads"),
+            "wo": L("layers", "heads", "embed"),
+            "bo": L("layers", "norm"),
+        },
+        "mlp": {
+            "w_in": L("layers", "embed", "mlp"),
+            "b_in": L("layers", "mlp"),
+            "w_out": L("layers", "mlp", "embed"),
+            "b_out": L("layers", "norm"),
+        },
+        "ln1_g": L("layers", "norm"),
+        "ln1_b": L("layers", "norm"),
+        "ln2_g": L("layers", "norm"),
+        "ln2_b": L("layers", "norm"),
+    }
+    return {
+        "wte": L("vocab", "embed"),
+        "wpe": L(None, "embed"),
+        "layers": layer,
+        "lnf_g": L("norm",),
+        "lnf_b": L("norm",),
+    }
 
 
 def init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,

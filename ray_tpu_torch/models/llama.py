@@ -5,13 +5,21 @@ of tensors with the same keys and the same stacked ``[n_layers, ...]``
 layout as the JAX tree, so JAX parameters load unchanged
 (``ray_tpu_torch.convert``).  Master weights are f32; matmul weights and
 norms are cast to ``cfg.dtype`` where they are used, as in JAX.
-Attention goes through ``ops.attention.flash_attention`` (the Hopper
-kernels, forward and backward, on CUDA tensors; their plain versions on CPU
-tensors).  ``loss_fn`` is the next-token cross-entropy the trainer takes.
+Attention goes through ``_attention``: ``ops.attention.flash_attention``
+(the Hopper kernels, forward and backward, on CUDA tensors; their plain
+versions on CPU tensors), or with a mesh the sequence-parallel attention of
+``ops/ring_attention.py``.  ``loss_fn`` is the next-token cross-entropy the
+trainer takes.
+
+With a mesh the forwards run per rank on the rank's local tokens: a
+contiguous block of the sequence over the mesh's ``sp`` axis, whose
+positions are offset by the block's start.  Parameters are whole on every
+rank.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -22,6 +30,10 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from ray_tpu_torch.models.losses import chunked_softmax_xent
 from ray_tpu_torch.ops.attention import ATTENTION
+from ray_tpu_torch.ops.ring_attention import SEQUENCE_PARALLEL, \
+    sequence_parallel_attention
+from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.sharding import logical_spec as L
 
 
 @dataclass(frozen=True)
@@ -66,6 +78,31 @@ class LlamaConfig:
         return LlamaConfig(vocab_size=vocab_size, d_model=256, n_layers=4,
                            n_heads=8, n_kv_heads=2, d_ff=896,
                            max_seq_len=512, remat=True, loss_chunk=128)
+
+
+def param_logical_specs(cfg: LlamaConfig):
+    """Logical sharding spec tree, mirroring init()'s param tree."""
+    layer = {
+        "attn": {
+            "wq": L("layers", "embed", "heads"),
+            "wk": L("layers", "embed", "kv_heads"),
+            "wv": L("layers", "embed", "kv_heads"),
+            "wo": L("layers", "heads", "embed"),
+        },
+        "mlp": {
+            "w_gate": L("layers", "embed", "mlp"),
+            "w_up": L("layers", "embed", "mlp"),
+            "w_down": L("layers", "mlp", "embed"),
+        },
+        "attn_norm": L("layers", "norm"),
+        "mlp_norm": L("layers", "norm"),
+    }
+    return {
+        "embed": L("vocab", "embed"),
+        "layers": layer,
+        "final_norm": L("norm",),
+        "lm_head": L("embed", "vocab"),
+    }
 
 
 def init(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -153,7 +190,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def _layer(cfg: LlamaConfig, x, p, positions, attn):
+def _attention(attn_impl: str, mesh=None, rules: Optional[Dict] = None):
+    """The attention ``(q, k, v, causal=...) -> out`` that ``attn_impl``
+    names: dense "flash" (the kernels) or "plain", or with a mesh the
+    sequence-parallel "ring", "zigzag" (the balanced ring) or "ulysses"."""
+    if attn_impl in SEQUENCE_PARALLEL:
+        if mesh is None:
+            raise ValueError(f"attn_impl={attn_impl!r} requires a mesh")
+        return functools.partial(sequence_parallel_attention, mesh=mesh,
+                                 impl=attn_impl, rules=rules)
+    if mesh_axis_size(mesh, "sp") > 1:
+        raise ValueError(f"the mesh shards the sequence over sp, which "
+                         f"attn_impl={attn_impl!r} does not attend across")
+    return ATTENTION[attn_impl]
+
+
+def _positions(seq: int, mesh, device) -> torch.Tensor:
+    """(1, seq) global positions of the rank's tokens: its contiguous
+    block of the sequence over the mesh's sp axis."""
+    start = 0
+    if mesh_axis_size(mesh, "sp") > 1:
+        start = mesh.get_local_rank("sp") * seq
+    return (start + torch.arange(seq, device=device))[None, :]
+
+
+def _attention_block(cfg, x, p, positions, attn):
+    """x plus the attention of its RMS-normed self: the first half of a
+    layer, shared with ``models/moe.py``."""
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q = (h @ p["attn"]["wq"].to(h.dtype)).reshape(
@@ -165,7 +228,11 @@ def _layer(cfg: LlamaConfig, x, p, positions, attn):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     out = attn(q, k, v, causal=True).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + out @ p["attn"]["wo"].to(h.dtype)
+    return x + out @ p["attn"]["wo"].to(h.dtype)
+
+
+def _layer(cfg: LlamaConfig, x, p, positions, attn):
+    x = _attention_block(cfg, x, p, positions, attn)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     gate = F.silu(h @ p["mlp"]["w_gate"].to(h.dtype))
     up = h @ p["mlp"]["w_up"].to(h.dtype)
@@ -173,15 +240,17 @@ def _layer(cfg: LlamaConfig, x, p, positions, attn):
 
 
 def trunk(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-          attn_impl: str = "flash") -> torch.Tensor:
+          attn_impl: str = "flash", mesh=None,
+          rules: Optional[Dict] = None) -> torch.Tensor:
     """Embeddings -> final RMS norm, without the LM head: (b, s, d).
     ``attn_impl`` "flash" is the kernel path; "plain" runs the plain
-    attention on any device (what the kernel is held against).  With
+    attention on any device (what the kernel is held against); "ring",
+    "zigzag" and "ulysses" need ``mesh`` (``_attention``).  With
     ``cfg.remat`` each layer runs under a non-reentrant checkpoint while
     gradients are being recorded (``jax.checkpoint`` in JAX)."""
-    attn = ATTENTION[attn_impl]
+    attn = _attention(attn_impl, mesh, rules)
     x = state["embed"][tokens].to(torch_dtype(cfg.dtype))
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = _positions(tokens.shape[1], mesh, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer_params(state["layers"], i)
@@ -194,19 +263,21 @@ def trunk(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
 
 
 def apply(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-          attn_impl: str = "flash") -> torch.Tensor:
+          attn_impl: str = "flash", mesh=None,
+          rules: Optional[Dict] = None) -> torch.Tensor:
     """Forward pass: tokens (batch, seq) int -> logits (batch, seq, vocab)
     f32.  The LM head takes operands rounded to ``cfg.dtype`` and
     accumulates in f32 (a product of two bf16 values is exact in f32)."""
-    x = trunk(state, tokens, cfg, attn_impl)
+    x = trunk(state, tokens, cfg, attn_impl, mesh, rules)
     return x.float() @ state["lm_head"].to(x.dtype).float()
 
 
 def loss_fn(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-            attn_impl: str = "flash") -> torch.Tensor:
+            attn_impl: str = "flash", mesh=None,
+            rules: Optional[Dict] = None) -> torch.Tensor:
     """Next-token cross-entropy of tokens (batch, seq + 1), with the head
     product in ``cfg.dtype`` and f32 logits, chunked by ``cfg.loss_chunk``
     (``models/losses.py``)."""
-    x = trunk(state, tokens[:, :-1], cfg, attn_impl)
+    x = trunk(state, tokens[:, :-1], cfg, attn_impl, mesh, rules)
     return chunked_softmax_xent(x, state["lm_head"], tokens[:, 1:],
                                 chunk=cfg.loss_chunk)

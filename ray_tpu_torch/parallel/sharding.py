@@ -1,0 +1,136 @@
+"""Logical-axis sharding rules: partition specs from semantic axis names.
+
+Counterpart of ``ray_tpu/parallel/sharding.py``.  Model code names each
+parameter's axes logically ("embed", "heads", "experts", ...); a rules
+table maps logical names to mesh axes, so one model definition serves every
+parallelism layout.  ``to_partition_spec`` gives the entries a JAX
+``PartitionSpec`` holds (``None``, a mesh-axis name or a tuple of names);
+``placements`` turns such a spec into DTensor placements over a
+``DeviceMesh`` and ``shard_tree`` distributes a parameter tree by them.
+
+``shard_map`` has no counterpart: the torch code is already per-rank SPMD.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+# Default rules for transformer LMs.  Values are mesh axis names (or tuples
+# thereof), None = replicated.  The dcn (multi-slice) axis carries plain
+# data parallelism.
+DEFAULT_RULES: dict[str, Union[str, tuple, None]] = {
+    "batch": ("dcn", "dp", "fsdp"),
+    "seq": "sp",           # sequence/context parallelism
+    "embed": "fsdp",       # ZeRO-style param sharding
+    "heads": "tp",
+    "kv_heads": "tp",
+    "head_dim": None,
+    "mlp": "tp",
+    "vocab": "tp",
+    "experts": "ep",
+    "expert_mlp": "tp",
+    "stage": "pp",
+    "norm": None,
+    "layers": None,        # the stacked-layer dim stays whole
+}
+
+# Spec-entry spelling for intentional replication, alongside plain None.
+REPLICATED = "replicated"
+
+
+def logical_spec(*names: Optional[str]) -> tuple:
+    """A logical partition spec: tuple of logical axis names (None or
+    ``"replicated"`` = replicated on purpose)."""
+    return tuple(names)
+
+
+def _entry(axes):
+    """A rule's value as ``PartitionSpec`` stores it: a sequence of mesh
+    axes becomes a tuple, an empty one None and a single one its name."""
+    if isinstance(axes, (tuple, list)):
+        axes = tuple(axes)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return axes
+
+
+def to_partition_spec(logical: tuple, rules: Optional[dict] = None) -> tuple:
+    """Map a logical spec through a rules table to partition-spec entries,
+    one per tensor dim: ``None``, a mesh-axis name or a tuple of names.
+
+    An axis name absent from the rules raises: silently replicating a
+    typo'd name costs memory and comm without any error.  Spell
+    intentional replication ``None`` or ``"replicated"`` in the spec, or add
+    a ``name: None`` rule."""
+    rules = DEFAULT_RULES if rules is None else rules
+    axes = []
+    for name in logical:
+        if name is None or name == REPLICATED:
+            axes.append(None)
+        elif name in rules:
+            axes.append(_entry(rules[name]))
+        else:
+            raise ValueError(
+                f"unknown logical axis {name!r}: not in the sharding rules "
+                f"(known: {sorted(rules)}). Use None or 'replicated' for "
+                "intentional replication, or add a rule for it.")
+    return tuple(axes)
+
+
+def tree_partition_specs(logical_tree, rules: Optional[dict] = None):
+    """``to_partition_spec`` over a nested dict of logical specs."""
+    if isinstance(logical_tree, dict):
+        return {k: tree_partition_specs(v, rules)
+                for k, v in logical_tree.items()}
+    return to_partition_spec(logical_tree, rules)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of partition-spec entries ``spec`` on ``mesh``:
+    for each mesh dim, ``Shard(d)`` where tensor dim ``d``'s entry names it,
+    else ``Replicate()``.
+
+    JAX shards a tensor dim over a tuple of mesh axes major-to-minor in the
+    tuple's order; DTensor shards it over mesh dims in mesh order.  The two
+    layouts agree only when the tuple follows the mesh's order, so a tuple
+    out of that order raises, as does a mesh axis named twice or one the
+    mesh lacks."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    seen = set()
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        for axis in axes:
+            if axis not in names:
+                raise ValueError(f"mesh axis {axis!r} of spec {spec} is not "
+                                 f"in the mesh {tuple(names)}")
+            if axis in seen:
+                raise ValueError(f"mesh axis {axis!r} shards two tensor dims "
+                                 f"in spec {spec}")
+            seen.add(axis)
+            out[names.index(axis)] = Shard(dim)
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(
+                f"spec entry {entry} shards tensor dim {dim} over mesh axes "
+                f"out of the mesh's order {tuple(names)}: DTensor would lay "
+                "the shards out differently from JAX")
+    return tuple(out)
+
+
+def shard_tree(tree, logical_tree, mesh, rules: Optional[dict] = None):
+    """Distribute a nested dict of tensors over ``mesh`` by its logical
+    specs: each leaf becomes a DTensor whose local shard on every rank is
+    the block JAX's ``NamedSharding`` puts on the device at the same mesh
+    coordinates.  Every rank of the mesh must call it with the same
+    tensors."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, logical_tree[k], mesh, rules)
+                for k, v in tree.items()}
+    return distribute_tensor(
+        tree, mesh, placements(to_partition_spec(logical_tree, rules), mesh))

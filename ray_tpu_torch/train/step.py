@@ -1,8 +1,11 @@
-"""The training step on one device, and its optimizer.
+"""The training step and its optimizer.
 
-Counterpart of ``ray_tpu/train/step.py`` without the mesh: sharding comes
-with the ``parallel/`` slice.  A model module (``init`` / ``loss_fn``) and
-an optimizer make a step ``(state, tokens) -> (state, metrics)``.
+Counterpart of ``ray_tpu/train/step.py``.  A model module (``init`` /
+``loss_fn``) and an optimizer make a step ``(state, tokens) -> (state,
+metrics)`` on the device that holds the state.  With a mesh the
+sequence-parallel attention impls run across its ``sp`` axis; reducing
+gradients over the data axes and a global norm over sharded leaves are not
+here yet.
 
 ``default_optimizer`` is the port's own code, not ``torch.optim.AdamW``
 (which decays before the Adam step): it is the JAX package's
@@ -19,8 +22,16 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch.ops.ring_attention import SEQUENCE_PARALLEL
+from ray_tpu_torch.parallel.sharding import placements, to_partition_spec
 
 ADAM_EPS = 1e-8  # optax.adamw's eps, outside the square root
+
+
+def data_sharding(mesh, rules: Optional[dict] = None) -> tuple:
+    """DTensor placements of a (batch, seq) tensor on ``mesh``: batch over
+    the data axes, sequence over sp."""
+    return placements(to_partition_spec(("batch", "seq"), rules), mesh)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -131,18 +142,23 @@ def create_train_state(model: Any, cfg: Any, optimizer: ClippedAdamW,
 
 def make_train_step(model: Any, cfg: Any, optimizer: ClippedAdamW,
                     loss_fn: Optional[Callable] = None,
-                    attn_impl: Optional[str] = None) -> Callable:
+                    attn_impl: Optional[str] = None, mesh=None,
+                    rules: Optional[dict] = None) -> Callable:
     """The train step ``(state, tokens) -> (state, {"loss", "grad_norm"})``
     on the device that holds the state; tokens are (batch, seq + 1).
 
     ``loss_fn(params, tokens)`` defaults to ``model.loss_fn`` with
-    ``attn_impl`` when given.  ``grad_norm`` is the global norm before
-    clipping.  The update is made in place under ``torch.no_grad()``: the
-    returned state holds the same parameter and moment tensors as the one
-    passed in, which is the counterpart of JAX's donated state.  Metrics are
-    0-dim device tensors; reading them waits for the step."""
+    ``attn_impl`` when given, and ``mesh`` and ``rules`` for the
+    sequence-parallel impls (``SEQUENCE_PARALLEL``).  ``grad_norm`` is the
+    global norm before clipping.  The update is made in place under
+    ``torch.no_grad()``: the returned state holds the same parameter and
+    moment tensors as the one passed in, which is the counterpart of JAX's
+    donated state.  Metrics are 0-dim device tensors; reading them waits
+    for the step."""
     if loss_fn is None:
         kwargs = {} if attn_impl is None else {"attn_impl": attn_impl}
+        if attn_impl in SEQUENCE_PARALLEL:
+            kwargs.update(mesh=mesh, rules=rules)
 
         def loss_fn(params, tokens):
             return model.loss_fn(params, tokens, cfg, **kwargs)

@@ -54,6 +54,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Loops of small products: one intra-op thread, so the test workers
+    do not oversubscribe the cores with spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(x):
     return torch.tensor(x, dtype=torch.float32)
 
@@ -282,3 +292,91 @@ def test_empty_and_unseen_rows_match_the_plain_versions():
     dk, dv = emulate_dkv(q, k, v, d_out, lse, torch.ones(2, 70), True, 0.1)
     assert torch.equal(dk, torch.zeros_like(k))
     assert torch.equal(dv, torch.zeros_like(v))
+
+
+def test_mixtral_shape_rounding_meets_chip_tolerances():
+    """The MoE trainer's attention at head_dim 128 with 4:1 GQA over 4096
+    keys (one KV head of Mixtral's eight: dK/dV sums 4 x 4096 terms per
+    key, as on the card): forward, dQ and dK/dV against the plain
+    versions within ``chip_smoke.py``'s tolerances."""
+    q, k, v, d_out = _inputs(1, 4, 1, 4096, 4096, 128, seed=12)
+    scale = 1.0 / math.sqrt(128)
+    p_out, p_lse = tattn.reference_attention(q, k, v, True, scale)
+    out, lse = emulate_forward(q, k, v, True, scale)
+    assert _err(out, p_out) <= chip_smoke.out_tolerance(torch.bfloat16,
+                                                        p_out)
+    assert _err(lse, p_lse) <= chip_smoke.LSE_TOL
+    delta = (d_out.float() * p_out.float()).sum(dim=-1)
+    grads = tattn.reference_attention_backward(q, k, v, p_out, p_lse, d_out,
+                                               True, scale)
+    got = (emulate_dq(q, k, v, d_out, p_lse, delta, True, scale),
+           *emulate_dkv(q, k, v, d_out, p_lse, delta, True, scale))
+    for a, want in zip(got, grads):
+        assert _err(a, want) <= chip_smoke.grad_tolerance(torch.bfloat16,
+                                                          want)
+
+
+class _Emulated(torch.autograd.Function):
+    """The tensor-core kernels' rounding as an attention with a gradient,
+    in place of ``FlashAttention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = emulate_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        delta = (d_out.float() * out.float()).sum(dim=-1)
+        dq = emulate_dq(q, k, v, d_out, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = emulate_dkv(q, k, v, d_out, lse, delta, ctx.causal,
+                             ctx.scale)
+        return dq, dk, dv, None, None
+
+
+@pytest.mark.parametrize("seed", [6, 8])
+def test_moe_first_step_meets_chip_step_tolerances(monkeypatch, seed):
+    """``run_moe_trainer`` holds the first step through the kernels to the
+    same step through the plain attention: the loss within
+    ``MOE_STEP_LOSS_TOL``, the pre-clip grad norm within
+    ``STEP_NORM_RTOL``.  Here the emulated kernels at a Mixtral-shaped cut
+    (head_dim 128, 4:1 GQA, 8 experts top-2 at capacity 1.25, vocab
+    32000, bf16, remat, one layer; d_model 512, 1024 tokens) stay inside
+    both, and the bf16 rounding does move tokens across the router's
+    top-2 cut (why the MoE step has its own loss tolerance)."""
+    from ray_tpu_torch.models import llama, moe
+    from ray_tpu_torch.train.step import tree_leaves, tree_map
+
+    monkeypatch.setitem(tattn.ATTENTION, "emulated",
+                        lambda q, k, v, causal: tattn._packed_call(
+                            _Emulated.apply, q, k, v, causal, None))
+    cfg = moe.MoEConfig(d_model=512, n_heads=4, n_kv_heads=1, d_ff=1792,
+                        n_layers=1, max_seq_len=1024)
+    state = moe.init(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1025),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    got, routed = {}, {}
+    for impl in ("plain", "emulated"):
+        params = tree_map(lambda t: t.detach().requires_grad_(), state)
+        loss = moe.loss_fn(params, tokens, cfg, attn_impl=impl)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+        got[impl] = (loss.item(), norm.item())
+        with torch.no_grad():
+            p0 = llama.layer_params(state["layers"], 0)
+            x = llama._attention_block(
+                cfg, state["embed"][tokens[:, :-1]].bfloat16(), p0,
+                torch.arange(1024)[None, :], llama._attention(impl))
+            h = llama.rms_norm(x, p0["mlp_norm"], cfg.norm_eps)
+            routed[impl] = moe.route(cfg, h.reshape(-1, cfg.d_model),
+                                     p0["router"])["top_idx"]
+    assert (routed["plain"] != routed["emulated"]).any()
+    d_loss = abs(got["emulated"][0] - got["plain"][0])
+    d_norm = abs(got["emulated"][1] - got["plain"][1])
+    assert d_loss <= chip_smoke.MOE_STEP_LOSS_TOL
+    assert d_norm <= chip_smoke.STEP_NORM_RTOL * got["plain"][1]

@@ -99,3 +99,84 @@ def test_profiler_names_tell_the_kernels_apart():
         assert not any(scalar in n for n in tensor_core)
         assert not any(n in scalar for n in tensor_core)
     assert set(chip_smoke.DESIGN) == set(chip_smoke.BF16_KERNELS)
+
+
+def test_forward_work_counts_gqa_kv_heads_once():
+    """With GQA the forward reads each KV head once: k and v at bh_kv."""
+    bh, bh_kv, sq, sk, d = 8, 2, 64, 64, 128
+    ops, nbytes = chip_smoke.attention_work(bh, sq, sk, d, True, 2, bh_kv)
+    assert ops == chip_smoke.attention_work(bh, sq, sk, d, True, 2)[0]
+    assert nbytes == _nbytes(((bh, sq, d), 2), ((bh_kv, sk, d), 2),
+                             ((bh_kv, sk, d), 2), ((bh, sq, d), 2),
+                             ((bh, sq), 4))
+
+
+def test_mixtral_shape_bounds():
+    """The MoE trainer's attention (b 1, 32 heads on 8 KV heads, s 4096,
+    d 128, bf16, causal): every kernel is bound by its operations."""
+    _, b, h, hkv, s, d = chip_smoke.MIXTRAL_SHAPE
+    bh, bh_kv = b * h, b * hkv
+    pairs = s * (s + 1) // 2  # 8,390,656 per head
+    ops, nbytes = chip_smoke.attention_work(bh, s, s, d, True, 2, bh_kv)
+    assert ops == 4 * d * pairs * bh == 137_472_507_904
+    assert nbytes == 84_410_368
+    assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == "operations"
+    for kernel, per_pair in (("flash_bwd_dkv", 8), ("flash_bwd_dq", 6)):
+        ops, nbytes = chip_smoke.attention_bwd_work(kernel, bh, bh_kv, s, s,
+                                                    d, True, 2)
+        assert ops == per_pair * d * pairs * bh
+        assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == \
+            "operations"
+
+
+def test_moe_param_counts_and_memory_reckoning():
+    """Mixtral 8x7B's widths at one layer: 1,451.3M parameters a layer
+    (attention 41.9M, experts 1,409.3M), 262.1M of embedding and head;
+    28 B a parameter fits 80 GB at one layer and not at two."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.train.step import tree_leaves
+
+    cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(), n_layers=1)
+    c = chip_smoke.moe_param_counts(cfg)
+    assert c["attention"] == 41_943_040
+    assert c["experts"] == 1_409_286_144
+    assert c["per_layer"] == 1_451_270_144
+    assert c["embed_and_head"] == 262_144_000
+    assert c["total"] == 1_713_418_240
+    # attention + router + 2/8 of the experts + the LM head
+    assert c["active_per_token"] == 41_943_040 + 32_768 + 352_321_536 \
+        + 131_072_000
+    state = c["total"] * chip_smoke.MOE_BYTES_PER_PARAM
+    assert 47e9 < state < 49e9
+    two = chip_smoke.moe_param_counts(dataclasses.replace(cfg, n_layers=2))
+    assert two["total"] * chip_smoke.MOE_BYTES_PER_PARAM > 80e9
+    # the counts are the init tree's, at a small width
+    small = dataclasses.replace(moe.MoEConfig.tiny(), n_layers=3)
+    state = moe.init(small, torch.Generator().manual_seed(0), device="cpu")
+    assert sum(t.numel() for t in tree_leaves(state)) == \
+        chip_smoke.moe_param_counts(small)["total"]
+
+
+@pytest.mark.parametrize("factor", [0.5, 1.25, 8.0])
+def test_moe_drop_share_matches_route(factor):
+    """chip_smoke.py's plain-torch drop share equals the share of choices
+    ``moe.route`` does not keep."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import moe
+
+    cfg = dataclasses.replace(moe.MoEConfig.tiny(), n_experts=8,
+                              capacity_factor=factor)
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn(200, cfg.d_model, generator=g)
+    w = torch.randn(cfg.d_model, cfg.n_experts, generator=g)
+    share = chip_smoke.moe_drop_share(cfg, h, w)
+    keep = moe.route(cfg, h, w)["keep"]
+    assert share == pytest.approx(1 - float(keep.float().mean()), abs=1e-9)
+    assert (share > 0) == (factor == 0.5)
