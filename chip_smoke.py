@@ -53,7 +53,20 @@ Phases, each fatal on failure:
      step against the plain attention, the loss falling, 2 / 1 / 1
      launches a step, timed and profiled steps with peak memory beside
      its reckoning, and the first step on a world-size-1 NCCL mesh
-     through the zigzag dispatch, equal to the step without the mesh.
+     through the zigzag dispatch, equal to the step without the mesh;
+  9. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
+     batch 2 x seq 8192 (``run_llama3_trainer``), between two readings of
+     the kernels at its attention shape (32 heads on 8 KV heads, head_dim
+     128, seq 8192; the plain versions at 8 heads on 2): first
+     ``train_llama3_8b`` through ``DataParallelTrainer``, its controller
+     and a spawned worker, with a committed checkpoint of the reckoned
+     size (its save GB/s printed; written where there is room, then
+     deleted) and steady tokens/s, model TFLOP/s and MFU in the result,
+     and a dry-geometry run whose checkpoint is restored onto the card;
+     then the same step in this process on a world-size-1 NCCL mesh: the
+     first step against the plain attention (one KV head's group at a
+     time), the loss falling, 8 / 4 / 4 launches a step, timed and
+     profiled steps with peak memory beside its reckoning.
 The last three lines are the kernels' JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no result,
@@ -262,6 +275,12 @@ LSE_TOL = 1e-4  # lse is f32 in both; only the summation order differs
 APPLY_TOL = 0.05
 
 
+# (batch, heads, kv_heads) at which the kernels are held to their plain
+# versions, and the plain versions timed, at the Llama-3 trainer's seq 8192:
+# the same 4:1 GQA as its 32 heads on 8
+LLAMA3_PLAIN = (1, 8, 2)
+
+
 def check_kernels(report):
     import torch
 
@@ -280,6 +299,10 @@ def check_kernels(report):
         cases.append(("ragged", 1, 4, 2, 100, 100, 32, True, dtype))
         cases.append(("ragged", 2, 4, 1, 77, 130, 64, False, dtype))
         cases.append(("mixtral", 1, 32, 8, 4096, 4096, 128, True, dtype))
+        # the Llama-3 trainer's seq 8192 at 8 of its 32 heads (the plain
+        # version's f32 scores at all 32 would take 17 GB a tensor)
+        cases.append(("llama3_s8192", *LLAMA3_PLAIN, 8192, 8192, 128, True,
+                      dtype))
     rows = []
     for name, b, h, hkv, sq, sk, d, causal, dtype in cases:
         q, k, v = make_qkv(gen, b, h, hkv, sq, sk, d, dtype)
@@ -322,6 +345,8 @@ BWD_CASES = [  # (name, b, h, hkv, sq, sk, d, causal)
     # the MoE trainer's attention: 4:1 GQA at head_dim 128, 16384 terms
     # summed per key in dK/dV
     ("mixtral", 1, 32, 8, 4096, 4096, 128, True),
+    # the Llama-3 trainer's seq 8192, 4:1 GQA at 8 of its 32 heads
+    ("llama3_s8192", *LLAMA3_PLAIN, 8192, 8192, 128, True),
 ]
 
 
@@ -477,19 +502,24 @@ def kernel_counts(rows, names):
 
 # (name, batch, heads, kv_heads, seq, head_dim) of the attention the main
 # training paths give the kernels, bf16 and causal: bench.py's GPT-2 124M
-# trainer and Mixtral 8x7B's (32 query heads on 8 KV heads, head_dim 128)
+# trainer, Mixtral 8x7B's (32 query heads on 8 KV heads, head_dim 128) and
+# the Llama-3 8B recipe's (the same heads, batch 2 x seq 8192)
 TRAINER_SHAPE = ("trainer", 12, 12, 12, 1024, 64)
 MIXTRAL_SHAPE = ("mixtral", 1, 32, 8, 4096, 128)
+LLAMA3_SHAPE = ("llama3", 2, 32, 8, 8192, 128)
 
 
-def time_attention(report, reading: int, shape=TRAINER_SHAPE):
+def time_attention(report, reading: int, shape=TRAINER_SHAPE, plain=None):
     """The three kernels at one training path's attention shape: device ms
     per call of the bf16 kernels (``BF16_KERNELS``, by name from the
     profiler) against the plain versions, SDPA forward and SDPA backward
     under autograd (the library yardsticks, timed only; GQA K/V repeated
     outside the timed call), and the bounds.  Run twice in one script
     (``reading`` 1 and 2): a stand-alone kernel time moves by up to 16%
-    between readings on this machine."""
+    between readings on this machine.  With ``plain`` (batch, heads,
+    kv_heads) the plain versions, whose f32 scores would not fit at
+    ``shape``, are timed at those heads and the kernels' errors taken
+    there; kernel, SDPA and bound stay at ``shape``."""
     import torch
     import torch.nn.functional as F
 
@@ -503,6 +533,11 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE):
     d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     scale = 1.0 / math.sqrt(d)
     out, lse = attention.flash_forward(q, k, v, True, scale)
+    qp, kp, vp, dp, outp, lsep = q, k, v, d_out, out, lse
+    if plain is not None:
+        qp, kp, vp = make_qkv(gen, *plain, s, s, d, dtype)
+        dp = torch.randn(qp.shape, generator=gen, device="cuda").to(dtype)
+        outp, lsep = attention.flash_forward(qp, kp, vp, True, scale)
     q4, do4 = (x.view(b, h, s, d) for x in (q, d_out))
     k4, v4 = (x.view(b, hkv, s, d).repeat_interleave(h // hkv, dim=1)
               for x in (k, v))
@@ -522,25 +557,27 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE):
         "flash_bwd_dkv": bwd[BF16_KERNELS["flash_bwd_dkv"]],
         "flash_bwd_dq": bwd[BF16_KERNELS["flash_bwd_dq"]],
         "plain_fwd": device_ms(
-            lambda: attention.reference_attention(q, k, v, True, scale), 5),
+            lambda: attention.reference_attention(qp, kp, vp, True, scale),
+            5),
         "plain_bwd": device_ms(
             lambda: attention.reference_attention_backward(
-                q, k, v, out, lse, d_out, True, scale), 5),
+                qp, kp, vp, outp, lsep, dp, True, scale), 5),
         "sdpa_fwd": device_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True, scale=scale)),
         "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, do4, retain_graph=True)),
     }
-    ref_out, _ = attention.reference_attention(q, k, v, True, scale)
-    got = attention.flash_backward(q, k, v, out, lse, d_out, True, scale)
-    want = attention.reference_attention_backward(q, k, v, out, lse, d_out,
+    ref_out, _ = attention.reference_attention(qp, kp, vp, True, scale)
+    got = attention.flash_backward(qp, kp, vp, outp, lsep, dp, True, scale)
+    want = attention.reference_attention_backward(qp, kp, vp, outp, lsep, dp,
                                                   True, scale)
     errs = [float((a.float() - w.float()).abs().max())
             for a, w in zip(got, want)]
+    del got, want
     rows = {}
-    for kname, plain, lib, err in (
+    for kname, plain_key, lib, err in (
             ("flash_fwd", "plain_fwd", "sdpa_fwd",
-             float((out.float() - ref_out.float()).abs().max())),
+             float((outp.float() - ref_out.float()).abs().max())),
             ("flash_bwd_dkv", "plain_bwd", "sdpa_bwd", max(errs[1:])),
             ("flash_bwd_dq", "plain_bwd", "sdpa_bwd", errs[0])):
         if kname == "flash_fwd":
@@ -549,21 +586,27 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE):
             ops, nbytes = attention_bwd_work(kname, bh, bh_kv, s, s, d,
                                              True, 2)
         bms, by = bound_ms(ops, nbytes, "bfloat16")
-        for key in (kname, plain):
+        for key in (kname, plain_key):
             if dev[key] <= 0:
                 raise SystemExit(f"the profiler saw no kernel of {key} at the "
                                  f"{name} shape")
         lib_ms = measured(dev[lib])
-        rows[kname] = {"ms": dev[kname], "plain_ms": dev[plain],
+        rows[kname] = {"ms": dev[kname], "plain_ms": dev[plain_key],
                        "library_ms": lib_ms, "bound_ms": bms,
                        "bound_by": by, "ops": ops, "bytes": nbytes,
                        "tflops": ops / dev[kname] / 1e9,
                        "bound_share": bms / dev[kname], "max_abs_err": err}
+        at = ""
+        if plain is not None:
+            rows[kname]["plain_shape"] = {"b": plain[0], "h": plain[1],
+                                          "hkv": plain[2]}
+            at = f" at b{plain[0]} h{plain[1]}/{plain[2]}"
         print(f"time #{reading} {kname} ({BF16_KERNELS[kname]}) {name} shape "
               f"b{b} h{h}/{hkv} s{s} d{d} bf16 causal, device ms per call: "
               f"kernel {dev[kname]:.4f} ({ops / dev[kname] / 1e9:.1f} "
-              f"TFLOP/s, {bms / dev[kname]:.3f} of bound), plain "
-              f"{dev[plain]:.4f} ({plain}), sdpa {fmt_ms(lib_ms)} ({lib}), "
+              f"TFLOP/s, {bms / dev[kname]:.3f} of bound), plain{at} "
+              f"{dev[plain_key]:.4f} ({plain_key}), sdpa {fmt_ms(lib_ms)} "
+              f"({lib}), "
               f"bound {bms:.5f} ({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB)"
               f"; max abs err vs plain {err:.3e}", flush=True)
     report.setdefault(f"{name}_kernel_times", []).append(rows)
@@ -1871,6 +1914,369 @@ def run_moe_trainer(report):
     return launches
 
 
+# Llama-3 8B's widths (LlamaConfig.llama3_8b()) cut to four layers, at the
+# recipe's batch 2 x seq 8192 on a one-card mesh.  The step's state and
+# update cost 28 B a parameter, as the MoE's: 32 layers would need ~225 GB,
+# 6 layers 66 GB (~76 GB with the bf16 casts and the remat activations).  A
+# checkpoint holds the f32 weights and both moments, 12 B a parameter.
+LLAMA3_LAYERS, LLAMA3_BATCH, LLAMA3_SEQ = 4, 2, 8192
+LLAMA3_BYTES_PER_PARAM = 28
+LLAMA3_CKPT_BYTES_PER_PARAM = 12
+LLAMA3_STEPS = 4  # the entry point's: steps 2 and 3 are steady-state
+LLAMA3_CKPT_DIRS = ("TMPDIR", "checkout")  # where the checkpoint may go
+# The first step through the kernels against the plain attention's: in the
+# CPU emulation of the kernels' rounding at Llama-3-shaped cuts (head_dim
+# 128, 4:1 GQA, vocab 128256, bf16, remat; 2 layers x 1024 tokens and 4 x
+# 2048, five seeds; tests/test_torch_attention_tc_numerics.py) the loss
+# moved by at most 4.7e-4 and the grad norm by 2.1e-4 of its value: the
+# GPT-2 trainer's tolerances hold.
+LLAMA3_STEP_LOSS_TOL = STEP_LOSS_TOL
+
+
+def llama3_param_counts(cfg):
+    """Parameters of the Llama model by part (``llama.init``'s leaves)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+    mlp = 3 * d * cfg.d_ff
+    per_layer = attn + mlp + 2 * d
+    embed_and_head = 2 * cfg.vocab_size * d
+    return {"attention": attn, "mlp": mlp, "per_layer": per_layer,
+            "embed_and_head": embed_and_head,
+            "total": cfg.n_layers * per_layer + embed_and_head + d}
+
+
+def chunked_plain_attention():
+    """The plain attention (``reference_attention`` and
+    ``reference_attention_backward``, the kernels' plain versions) one KV
+    head's query group at a time, with that backward as its gradient: at
+    the Llama-3 trainer's shape the whole plain attention's f32 scores
+    would take 17 GB a tensor.  Each (query, key) pair's math is the plain
+    version's.  Returns an ``attn_impl`` callable."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+
+    def chunks(q, k):
+        group = q.shape[0] // k.shape[0]
+        return [(slice(j * group, (j + 1) * group), slice(j, j + 1))
+                for j in range(k.shape[0])]
+
+    class ChunkedPlain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, scale):
+            out = torch.empty_like(q)
+            lse = q.new_empty(q.shape[:2], dtype=torch.float32)
+            for qs, ks in chunks(q, k):
+                out[qs], lse[qs] = attention.reference_attention(
+                    q[qs], k[ks], v[ks], causal, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.scale = causal, scale
+            return out
+
+        @staticmethod
+        def backward(ctx, d_out):
+            q, k, v, out, lse = ctx.saved_tensors
+            d_out = d_out.contiguous()
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            for qs, ks in chunks(q, k):
+                dq[qs], dk[ks], dv[ks] = \
+                    attention.reference_attention_backward(
+                        q[qs], k[ks], v[ks], out[qs], lse[qs], d_out[qs],
+                        ctx.causal, ctx.scale)
+            return dq, dk, dv, None, None
+
+    def attn(q, k, v, *, causal=True, sm_scale=None):
+        return attention._packed_call(ChunkedPlain.apply, q, k, v, causal,
+                                      sm_scale)
+
+    return attn
+
+
+def checkpoint_dir(need: int) -> str:
+    """A directory with ``need`` bytes free: the process's temporary
+    directory, else the checkout's git-ignored ``_run/``."""
+    import shutil
+    import tempfile
+
+    free = {}
+    for where in LLAMA3_CKPT_DIRS:
+        path = (tempfile.gettempdir() if where == "TMPDIR"
+                else os.path.join(HERE, "_run"))
+        os.makedirs(path, exist_ok=True)
+        free[path] = shutil.disk_usage(path).free
+        if free[path] >= need:
+            print(f"llama3 checkpoint directory {path}: "
+                  f"{free[path] / 1e9:.1f} GB free, {need / 1e9:.1f} GB "
+                  "needed", flush=True)
+            return tempfile.mkdtemp(prefix="llama3_", dir=path)
+    raise SystemExit(f"no directory has {need / 1e9:.1f} GB free for the "
+                     "Llama-3 checkpoint: " + ", ".join(
+                         f"{p} {b / 1e9:.1f} GB" for p, b in free.items()))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def run_llama3_trainer(report):
+    """The Llama-3 8B pretraining recipe at Llama-3 8B's widths cut to four
+    layers, batch 2 x seq 8192: (a) ``train_llama3_8b`` through
+    ``DataParallelTrainer``, the controller and a spawned worker, its
+    committed checkpoint and metrics, and a dry-geometry run whose
+    checkpoint is restored onto the card; (b) the same step in this
+    process on a world-size-1 NCCL mesh (``create_train_state`` /
+    ``make_train_step`` with ``mesh``), where the launch counters can be
+    read: the first step against the plain attention, the loss falling,
+    launches a step, timed and profiled steps.  Returns the kernels'
+    launches over (b)'s counted steps."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.train import step as train
+    from ray_tpu_torch.train.checkpoint import load_pytree
+    from ray_tpu_torch.train.llama3 import train_llama3_8b
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=LLAMA3_LAYERS)
+    counts = llama3_param_counts(cfg)
+    n_params, n_tok = counts["total"], LLAMA3_BATCH * LLAMA3_SEQ
+    need_mem = n_params * LLAMA3_BYTES_PER_PARAM
+    ckpt_reckoned = n_params * LLAMA3_CKPT_BYTES_PER_PARAM
+    six = llama3_param_counts(dataclasses.replace(cfg, n_layers=6))["total"]
+    print(f"llama3 trainer: Llama-3 8B widths, {cfg.n_layers} layers: "
+          f"{n_params} params ({counts['per_layer']} a layer, embed + head "
+          f"{counts['embed_and_head']}); state and update at "
+          f"{LLAMA3_BYTES_PER_PARAM} B a param {need_mem / 1e9:.1f} GB (6 "
+          f"layers {six * LLAMA3_BYTES_PER_PARAM / 1e9:.1f} GB); checkpoint "
+          f"{ckpt_reckoned / 1e9:.1f} GB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"llama3 trainer: {free / 1e9:.2f} GB of {total / 1e9:.2f} GB free "
+          "on the card before the worker starts", flush=True)
+    if free < need_mem:
+        raise SystemExit(f"{free} bytes free on the card, under the "
+                         f"{need_mem} the Llama-3 step needs")
+    tmp = checkpoint_dir(int(ckpt_reckoned * 1.1))
+    out = {"layers": cfg.n_layers, "param_counts": counts,
+           "reckoned_state_bytes": need_mem,
+           "reckoned_state_bytes_6_layers": six * LLAMA3_BYTES_PER_PARAM,
+           "reckoned_checkpoint_bytes": ckpt_reckoned,
+           "batch": LLAMA3_BATCH, "seq": LLAMA3_SEQ}
+    try:
+        # (a) the entry point, in a spawned worker
+        t0 = time.monotonic()
+        result = train_llama3_8b(
+            num_workers=1, steps=LLAMA3_STEPS, n_layers=LLAMA3_LAYERS,
+            mesh={"fsdp": 1, "tp": 1}, storage_path=os.path.join(tmp, "full"))
+        fit_s = time.monotonic() - t0
+        if result.error is not None:
+            raise SystemExit(f"train_llama3_8b failed: {result.error}")
+        m = result.metrics
+        ckpt_bytes = dir_bytes(result.checkpoint.path)
+        print(f"llama3 train_llama3_8b (this card): {fit_s:.1f} s, step "
+              f"{m['step']}, loss {m['loss']:.4f} (ln(vocab) "
+              f"{math.log(cfg.vocab_size):.4f}), grad norm "
+              f"{m['grad_norm']:.4f}; steady {m['tokens_per_sec']:.1f} "
+              f"tokens/s, model {m['model_tflops_per_s']:.3f} TFLOP/s, mfu "
+              f"{m['mfu']:.4f} (of 989), first-step bracket "
+              f"{m['compile_s']:.2f} s, goodput share "
+              f"{m['goodput_fraction']:.3f}; checkpoint {ckpt_bytes} bytes "
+              f"on disk ({ckpt_bytes / 1e9:.2f} GB, reckoned "
+              f"{ckpt_reckoned / 1e9:.2f} GB), saved in "
+              f"{m['checkpoint_s']:.2f} s = "
+              f"{m['checkpoint_bytes'] / m['checkpoint_s'] / 1e9:.2f} GB/s",
+              flush=True)
+        if not (m["step"] == LLAMA3_STEPS and 0 < m["loss"] < 20
+                and math.isfinite(m["loss"]) and m["tokens_per_sec"] > 0
+                and m["model_tflops_per_s"] and m["mfu"]
+                and m["n_params"] == n_params
+                and len(result.best_checkpoints) == 1
+                and abs(ckpt_bytes / ckpt_reckoned - 1) < 0.02):
+            raise SystemExit(f"train_llama3_8b's result is off: {m}")
+        out["entry_point"] = dict(m, fit_s=fit_s,
+                                  checkpoint_disk_bytes=ckpt_bytes)
+        shutil.rmtree(os.path.join(tmp, "full"))
+        dry = train_llama3_8b(num_workers=1, dry_run=True, steps=2,
+                              ckpt_every=2, seq_len=64,
+                              storage_path=os.path.join(tmp, "dry"))
+        if dry.error is not None:
+            raise SystemExit(f"the dry run failed: {dry.error}")
+
+        # (b) the same step in this process, on a world-size-1 NCCL mesh
+        os.makedirs(OUT_DIR, exist_ok=True)
+        store_dir = tempfile.mkdtemp(dir=OUT_DIR)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = create_mesh(MeshConfig(fsdp=1, tp=1), "cuda")
+            out.update(_llama3_steps(report, cfg, mesh, n_params, n_tok,
+                                     need_mem))
+            restored = load_pytree(dry.checkpoint.path, device="cuda")
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store_dir, ignore_errors=True)
+        dry_cfg = llama.LlamaConfig.llama3_8b_dry()
+        leaves = train.tree_leaves(restored["params"])
+        n_dry = sum(t.numel() for t in leaves)
+        print(f"llama3 dry checkpoint restored onto the card: {n_dry} params "
+              f"(llama3_8b_dry: {llama3_param_counts(dry_cfg)['total']}), "
+              f"step {int(restored['step'])}, devices "
+              f"{sorted({str(t.device) for t in leaves})}", flush=True)
+        if not (n_dry == llama3_param_counts(dry_cfg)["total"]
+                and int(restored["step"]) == 2
+                and all(t.is_cuda and bool(torch.isfinite(t).all())
+                        for t in leaves)):
+            raise SystemExit("the dry checkpoint's restore is off")
+        out["dry_restore"] = {"n_params": n_dry,
+                              "step": int(restored["step"])}
+        del restored, leaves
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["llama3_trainer"] = out
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def _llama3_steps(report, cfg, mesh, n_params, n_tok, need_mem):
+    """Part (b) of ``run_llama3_trainer``."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.train import step as train
+
+    tokens = torch.randint(0, cfg.vocab_size, (LLAMA3_BATCH, LLAMA3_SEQ + 1),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(107), device="cuda")
+
+    def fresh(opt):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        return train.create_train_state(llama, cfg, opt, gen, "cuda",
+                                        mesh=mesh)
+
+    # the first step through the kernels and through the plain attention
+    opt = train.default_optimizer(warmup_steps=1)
+    first = {}
+    attention.ATTENTION["plain_chunked"] = chunked_plain_attention()
+    try:
+        for impl in ("plain_chunked", "flash"):
+            state = fresh(opt)
+            step = train.make_train_step(llama, cfg, opt, attn_impl=impl,
+                                         mesh=mesh)
+            state, m = step(state, tokens)
+            first[impl] = {"loss": m["loss"].item(),
+                           "grad_norm": m["grad_norm"].item()}
+            if impl == "plain_chunked":
+                del state, step, m
+                torch.cuda.empty_cache()
+    finally:
+        del attention.ATTENTION["plain_chunked"]
+    plain = first["plain_chunked"]
+    d_loss = abs(first["flash"]["loss"] - plain["loss"])
+    d_norm = abs(first["flash"]["grad_norm"] - plain["grad_norm"])
+    print(f"llama3 trainer first step, kernels vs plain attention: loss "
+          f"{first['flash']['loss']:.6f} vs {plain['loss']:.6f} (diff "
+          f"{d_loss:.3e}, tol {LLAMA3_STEP_LOSS_TOL:.0e}); grad norm "
+          f"{first['flash']['grad_norm']:.6f} vs {plain['grad_norm']:.6f} "
+          f"(diff {d_norm:.3e}, tol {STEP_NORM_RTOL:.0%})", flush=True)
+    if not (d_loss <= LLAMA3_STEP_LOSS_TOL
+            and d_norm <= STEP_NORM_RTOL * plain["grad_norm"]
+            and math.isfinite(first["flash"]["loss"])):
+        raise SystemExit("the first Llama-3 step through the kernels "
+                         "disagrees")
+
+    # the loss falls on the repeated batch
+    losses = [first["flash"]["loss"]]
+    for _ in range(3):
+        state, m = step(state, tokens)
+        losses.append(m["loss"].item())
+    print("llama3 trainer repeated batch, loss per step: "
+          + ", ".join(f"{x:.4f}" for x in losses), flush=True)
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise SystemExit("the Llama-3 loss did not fall on a repeated batch")
+
+    # counted, timed steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 3
+    zero_launch_counts()
+    per_step = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n_steps):
+        before = launch_counts()
+        state, m = step(state, tokens)
+        per_step.append({k: n - before[k] for k, n in launch_counts().items()})
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    step_ms = start.elapsed_time(end) / n_steps
+    peak_bytes = torch.cuda.max_memory_allocated()
+    tok_s = n_tok / (step_ms / 1e3)
+    tflops = tok_s * 6 * n_params / 1e12  # the recipe's analytic count
+    final_loss = m["loss"].item()
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dkv": cfg.n_layers,
+            "flash_bwd_dq": cfg.n_layers}
+    print(f"llama3 trainer Llama-3 8B widths x {cfg.n_layers} layers (this "
+          f"card): batch {LLAMA3_BATCH} x seq {LLAMA3_SEQ}, {n_steps} steps: "
+          f"{step_ms:.3f} ms per step (host {wall / n_steps * 1e3:.3f} ms), "
+          f"{tok_s:.1f} tokens/s, model {tflops:.3f} TFLOP/s = "
+          f"{tflops / 989:.4f} of 989 TFLOP/s (6 x {n_params} params a "
+          f"token); peak allocated {peak_bytes / 1e9:.3f} GB (reckoned "
+          f"{need_mem / 1e9:.1f} GB of state and update); loss "
+          f"{final_loss:.4f}; launches {launches}", flush=True)
+    if any(d != want for d in per_step):
+        raise SystemExit(f"kernel launches per Llama-3 step {per_step}, want "
+                         f"{want} in each")
+    if not math.isfinite(final_loss):
+        raise SystemExit("the Llama-3 trainer's loss is not finite")
+
+    # where one step's device time goes (outside the counted run)
+    rows = device_events(lambda: step(state, tokens))
+    busy = sum(r[1] for r in rows)
+    profiled = kernel_counts(rows, (*BF16_KERNELS.values(), *SCALAR_KERNELS))
+    attn_ms = {k: sum(t for name, t, _ in rows if k in name)
+               for k in BF16_KERNELS.values()}
+    print(f"llama3 trainer step device busy {busy:.3f} ms of {step_ms:.3f} ms"
+          f" (idle share {1 - busy / step_ms:.3f}); kernel launches in the "
+          f"profiled step {profiled}, their device ms "
+          + ", ".join(f"{k} {t:.3f}" for k, t in attn_ms.items())
+          + "; top: " + "; ".join(
+              f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:12]),
+          flush=True)
+    want_profiled = {**{BF16_KERNELS[k]: n for k, n in want.items()},
+                     **{k: 0 for k in SCALAR_KERNELS}}
+    if profiled != want_profiled:
+        raise SystemExit(f"the profiled Llama-3 step launched {profiled}, "
+                         f"want {want_profiled}")
+    del state, step, m
+    torch.cuda.empty_cache()
+    return {"first_step": first, "repeated_batch_losses": losses,
+            "steps": n_steps, "step_ms": step_ms,
+            "host_step_ms": wall / n_steps * 1e3, "tokens_per_s": tok_s,
+            "model_tflops": tflops, "peak_share_989": tflops / 989,
+            "max_memory_allocated": peak_bytes, "final_loss": final_loss,
+            "launches": launches, "device_busy_ms": busy,
+            "idle_share": 1 - busy / step_ms,
+            "profiled_kernel_launches": profiled,
+            "profiled_kernel_ms": attn_ms,
+            "top": [{"kernel": k[:90], "ms": t, "count": c}
+                    for k, t, c in rows[:20]]}
+
+
 def main() -> int:
     import torch
 
@@ -1911,6 +2317,9 @@ def main() -> int:
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
     mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
+    llama3 = [time_attention(report, 1, LLAMA3_SHAPE, LLAMA3_PLAIN)]
+    llama3_launches = run_llama3_trainer(report)
+    llama3.append(time_attention(report, 2, LLAMA3_SHAPE, LLAMA3_PLAIN))
     second = time_attention(report, 2)
 
     # times at the trainer's shape, and at the MoE trainer's under
@@ -1924,7 +2333,8 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         row = first[name]
         by_path = {"trainer": trainer_launches[name],
-                   "moe_trainer": moe_launches[name]}
+                   "moe_trainer": moe_launches[name],
+                   "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":
             by_path = {"engine": engine_launches,
                        "frontends": frontend_launches, **by_path}
@@ -1948,6 +2358,13 @@ def main() -> int:
         entry["at_mixtral_shape"].update(
             ms_readings=[r[name]["ms"] for r in mixtral],
             library_ms_readings=[r[name]["library_ms"] for r in mixtral])
+        entry["at_llama3_shape"] = {
+            key: llama3[0][name][key]
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "max_abs_err", "plain_shape")}
+        entry["at_llama3_shape"].update(
+            ms_readings=[r[name]["ms"] for r in llama3],
+            library_ms_readings=[r[name]["library_ms"] for r in llama3])
         if name == "flash_fwd":
             # the JAX serving paths run XLA einsum attention, no Pallas call
             entry["replaces_on_serving_paths"] = "ray_tpu/llm/model.py:41-85"

@@ -14,7 +14,16 @@ trainer takes.
 With a mesh the forwards run per rank on the rank's local tokens: a
 contiguous block of the sequence over the mesh's ``sp`` axis, whose
 positions are offset by the block's start.  Parameters are whole on every
-rank.
+rank, unless the caller passes ``shards`` (``parallel.sharding.
+LocalShards``, which the sharded train step builds): then each leaf is the
+rank's local block, the ``fsdp``-split dims (and the vocab's tp split) are
+all-gathered where they are used, a stacked layer's slice inside its
+checkpoint so that remat gathers it again in the backward, and the
+``LOCAL_AXES`` stay split over tp: Megatron's column-parallel wq / wk /
+wv and w_gate / w_up into the row-parallel wo and w_down, with
+``collectives.replicate`` at each block's input and ``sum_replicated`` on
+its partial output.  The head counts and the MLP width come from the
+weights' local shapes.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ray_tpu_torch.models.losses import chunked_softmax_xent
 from ray_tpu_torch.ops.attention import ATTENTION
 from ray_tpu_torch.ops.ring_attention import SEQUENCE_PARALLEL, \
     sequence_parallel_attention
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
 from ray_tpu_torch.parallel.sharding import logical_spec as L
 
@@ -78,6 +88,10 @@ class LlamaConfig:
         return LlamaConfig(vocab_size=vocab_size, d_model=256, n_layers=4,
                            n_heads=8, n_kv_heads=2, d_ff=896,
                            max_seq_len=512, remat=True, loss_chunk=128)
+
+
+# the logical axes a tensor-parallel forward keeps split over tp
+LOCAL_AXES = ("heads", "kv_heads", "mlp")
 
 
 def param_logical_specs(cfg: LlamaConfig):
@@ -214,70 +228,101 @@ def _positions(seq: int, mesh, device) -> torch.Tensor:
     return (start + torch.arange(seq, device=device))[None, :]
 
 
-def _attention_block(cfg, x, p, positions, attn):
+def _attention_block(cfg, x, p, positions, attn, tp=None):
     """x plus the attention of its RMS-normed self: the first half of a
-    layer, shared with ``models/moe.py``."""
+    layer, shared with ``models/moe.py``.  The heads are those of the
+    weights given (a tp rank's local heads); with ``tp``, the group they
+    are split over, the partial output is summed over it."""
     b, s, _ = x.shape
+    hd = cfg.head_dim
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = (h @ p["attn"]["wq"].to(h.dtype)).reshape(
-        b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["attn"]["wk"].to(h.dtype)).reshape(
-        b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["attn"]["wv"].to(h.dtype)).reshape(
-        b, s, cfg.n_kv_heads, cfg.head_dim)
+    if tp is not None:
+        (h,) = collectives.replicate(tp, h)
+    wq, wk, wv = (p["attn"][n].to(h.dtype) for n in ("wq", "wk", "wv"))
+    q = (h @ wq).reshape(b, s, wq.shape[-1] // hd, hd)
+    k = (h @ wk).reshape(b, s, wk.shape[-1] // hd, hd)
+    v = (h @ wv).reshape(b, s, wv.shape[-1] // hd, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = attn(q, k, v, causal=True).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + out @ p["attn"]["wo"].to(h.dtype)
+    out = attn(q, k, v, causal=True).reshape(b, s, wq.shape[-1])
+    out = out @ p["attn"]["wo"].to(h.dtype)
+    if tp is not None:
+        out = collectives.sum_replicated(out, tp)
+    return x + out
 
 
-def _layer(cfg: LlamaConfig, x, p, positions, attn):
-    x = _attention_block(cfg, x, p, positions, attn)
+def _layer(cfg: LlamaConfig, x, p, positions, attn, shards=None):
+    tp = None
+    if shards is not None:
+        p = shards.gather(p, _LAYER_SPECS)
+        tp = shards.group("heads")
+    x = _attention_block(cfg, x, p, positions, attn, tp)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if tp is not None:
+        (h,) = collectives.replicate(tp, h)
     gate = F.silu(h @ p["mlp"]["w_gate"].to(h.dtype))
     up = h @ p["mlp"]["w_up"].to(h.dtype)
-    return x + (gate * up) @ p["mlp"]["w_down"].to(h.dtype)
+    out = (gate * up) @ p["mlp"]["w_down"].to(h.dtype)
+    if tp is not None:
+        out = collectives.sum_replicated(out, tp)
+    return x + out
+
+
+_SPECS = param_logical_specs(LlamaConfig())
+# a stacked layer's slice: its specs without the leading "layers" dim
+_LAYER_SPECS = {k: {n: spec[1:] for n, spec in v.items()}
+                if isinstance(v, dict) else v[1:]
+                for k, v in _SPECS["layers"].items()}
+
+
+def _whole(state: Dict, key: str, shards) -> torch.Tensor:
+    """A top-level leaf, all-gathered where ``shards`` says it is split."""
+    if shards is None:
+        return state[key]
+    return shards.gather(state[key], _SPECS[key])
 
 
 def trunk(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
           attn_impl: str = "flash", mesh=None,
-          rules: Optional[Dict] = None) -> torch.Tensor:
+          rules: Optional[Dict] = None, shards=None) -> torch.Tensor:
     """Embeddings -> final RMS norm, without the LM head: (b, s, d).
     ``attn_impl`` "flash" is the kernel path; "plain" runs the plain
     attention on any device (what the kernel is held against); "ring",
     "zigzag" and "ulysses" need ``mesh`` (``_attention``).  With
     ``cfg.remat`` each layer runs under a non-reentrant checkpoint while
-    gradients are being recorded (``jax.checkpoint`` in JAX)."""
+    gradients are being recorded (``jax.checkpoint`` in JAX).  ``shards``:
+    the parameters are the rank's local blocks (module docstring)."""
     attn = _attention(attn_impl, mesh, rules)
-    x = state["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = _whole(state, "embed", shards)[tokens].to(torch_dtype(cfg.dtype))
     positions = _positions(tokens.shape[1], mesh, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer_params(state["layers"], i)
         if remat:
-            x = checkpoint(_layer, cfg, x, p, positions, attn,
+            x = checkpoint(_layer, cfg, x, p, positions, attn, shards,
                            use_reentrant=False)
         else:
-            x = _layer(cfg, x, p, positions, attn)
+            x = _layer(cfg, x, p, positions, attn, shards)
     return rms_norm(x, state["final_norm"], cfg.norm_eps)
 
 
 def apply(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
           attn_impl: str = "flash", mesh=None,
-          rules: Optional[Dict] = None) -> torch.Tensor:
+          rules: Optional[Dict] = None, shards=None) -> torch.Tensor:
     """Forward pass: tokens (batch, seq) int -> logits (batch, seq, vocab)
     f32.  The LM head takes operands rounded to ``cfg.dtype`` and
     accumulates in f32 (a product of two bf16 values is exact in f32)."""
-    x = trunk(state, tokens, cfg, attn_impl, mesh, rules)
-    return x.float() @ state["lm_head"].to(x.dtype).float()
+    x = trunk(state, tokens, cfg, attn_impl, mesh, rules, shards)
+    return x.float() @ _whole(state, "lm_head", shards).to(x.dtype).float()
 
 
 def loss_fn(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
             attn_impl: str = "flash", mesh=None,
-            rules: Optional[Dict] = None) -> torch.Tensor:
+            rules: Optional[Dict] = None, shards=None) -> torch.Tensor:
     """Next-token cross-entropy of tokens (batch, seq + 1), with the head
     product in ``cfg.dtype`` and f32 logits, chunked by ``cfg.loss_chunk``
-    (``models/losses.py``)."""
-    x = trunk(state, tokens[:, :-1], cfg, attn_impl, mesh, rules)
-    return chunked_softmax_xent(x, state["lm_head"], tokens[:, 1:],
-                                chunk=cfg.loss_chunk)
+    (``models/losses.py``): the mean over these tokens, which with a mesh
+    are the rank's own."""
+    x = trunk(state, tokens[:, :-1], cfg, attn_impl, mesh, rules, shards)
+    return chunked_softmax_xent(x, _whole(state, "lm_head", shards),
+                                tokens[:, 1:], chunk=cfg.loss_chunk)

@@ -7,13 +7,16 @@ parallelism layout.  ``to_partition_spec`` gives the entries a JAX
 ``PartitionSpec`` holds (``None``, a mesh-axis name or a tuple of names);
 ``placements`` turns such a spec into DTensor placements over a
 ``DeviceMesh`` and ``shard_tree`` distributes a parameter tree by them.
+``LocalShards`` is how a forward computes on a rank's local blocks: it
+all-gathers the dims that the model uses whole and names the group of the
+dims it keeps local (tensor parallelism).
 
 ``shard_map`` has no counterpart: the torch code is already per-rank SPMD.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Iterable, List, Optional, Tuple, Union
 
 # Default rules for transformer LMs.  Values are mesh axis names (or tuples
 # thereof), None = replicated.  The dcn (multi-slice) axis carries plain
@@ -121,16 +124,114 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+def _axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one partition-spec entry, major to minor."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    return mesh.size(list(mesh.mesh_dim_names).index(axis))
+
+
+def local_block(tensor, spec: tuple, mesh):
+    """The block of ``tensor`` that ``spec`` puts on this rank of ``mesh``:
+    each sharded dim split evenly over its axes, major to minor, at the
+    rank's coordinates (JAX's ``NamedSharding`` layout).  A view where no
+    dim is split, else a contiguous copy."""
+    placements(spec, mesh)  # validates the spec against the mesh
+    for dim, entry in enumerate(spec):
+        n, idx = 1, 0
+        for axis in _axes(entry):
+            size = _axis_size(mesh, axis)
+            n, idx = n * size, idx * size + mesh.get_local_rank(axis)
+        if n == 1:
+            continue
+        if tensor.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {tensor.shape[dim]} does "
+                             f"not split evenly over {_axes(entry)} ({n})")
+        per = tensor.shape[dim] // n
+        tensor = tensor.narrow(dim, idx * per, per).contiguous()
+    return tensor
+
+
 def shard_tree(tree, logical_tree, mesh, rules: Optional[dict] = None):
     """Distribute a nested dict of tensors over ``mesh`` by its logical
     specs: each leaf becomes a DTensor whose local shard on every rank is
     the block JAX's ``NamedSharding`` puts on the device at the same mesh
-    coordinates.  Every rank of the mesh must call it with the same
+    coordinates.  Each rank takes its block of the tensor it holds, with
+    no communication, so every rank of the mesh must call it with the same
     tensors."""
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor
 
     if isinstance(tree, dict):
         return {k: shard_tree(v, logical_tree[k], mesh, rules)
                 for k, v in tree.items()}
-    return distribute_tensor(
-        tree, mesh, placements(to_partition_spec(logical_tree, rules), mesh))
+    spec = to_partition_spec(logical_tree, rules)
+    return DTensor.from_local(local_block(tree, spec, mesh), mesh,
+                              placements(spec, mesh), run_check=False,
+                              shape=tree.shape, stride=tree.stride())
+
+
+class LocalShards:
+    """How a forward computes on a rank's local parameter blocks.
+
+    ``local`` names the logical axes the model keeps split (its
+    tensor-parallel dims, which it pairs with ``collectives.replicate`` /
+    ``sum_replicated``); every other sharded dim is all-gathered before
+    use by ``gather``, whose backward sums the cotangents over the axis
+    and keeps the rank's block.  ``gathered_axes`` and ``sharded_axes``
+    tell the train step which reductions a leaf's gradient has had."""
+
+    def __init__(self, mesh, rules: Optional[dict] = None,
+                 local: Iterable[str] = ()):
+        self.mesh, self.rules, self.local = mesh, rules, tuple(local)
+
+    def _split(self, logical: tuple) -> List[Tuple[int, str, Tuple]]:
+        """(dim, logical name, mesh axes of size > 1) of each split dim."""
+        spec = to_partition_spec(logical, self.rules)
+        out = []
+        for dim, (name, entry) in enumerate(zip(logical, spec)):
+            axes = tuple(a for a in _axes(entry)
+                         if _axis_size(self.mesh, a) > 1)
+            if axes:
+                out.append((dim, name, axes))
+        return out
+
+    def gathered_axes(self, logical: tuple) -> Tuple[str, ...]:
+        """Mesh axes ``gather`` all-gathers a leaf of this spec over."""
+        return tuple(a for _, name, axes in self._split(logical)
+                     if name not in self.local for a in axes)
+
+    def sharded_axes(self, logical: tuple) -> Tuple[str, ...]:
+        """Every mesh axis of size > 1 that splits a leaf of this spec."""
+        return tuple(a for _, _, axes in self._split(logical) for a in axes)
+
+    def group(self, name: str):
+        """The process group of the mesh axis that splits logical axis
+        ``name``, or None where it is whole."""
+        axes = self._split((name,))
+        if not axes:
+            return None
+        if len(axes[0][2]) != 1:
+            raise NotImplementedError(
+                f"logical axis {name!r} is split over {axes[0][2]}; a local "
+                "dim takes one mesh axis")
+        return self.mesh.get_group(axes[0][2][0])
+
+    def gather(self, tree, logical_tree):
+        """``tree`` with every leaf's non-local split dims all-gathered
+        (minor axis first, so the blocks land in JAX's order)."""
+        from ray_tpu_torch.parallel import collectives
+
+        if isinstance(tree, dict):
+            return {k: self.gather(v, logical_tree[k])
+                    for k, v in tree.items()}
+        for dim, name, axes in self._split(logical_tree):
+            if name in self.local:
+                continue
+            for axis in reversed(axes):
+                tree = collectives.all_gather(
+                    tree, self.mesh.get_group(axis), dim)
+        return tree

@@ -380,3 +380,38 @@ def test_moe_first_step_meets_chip_step_tolerances(monkeypatch, seed):
     d_norm = abs(got["emulated"][1] - got["plain"][1])
     assert d_loss <= chip_smoke.MOE_STEP_LOSS_TOL
     assert d_norm <= chip_smoke.STEP_NORM_RTOL * got["plain"][1]
+
+
+@pytest.mark.parametrize("seed", [7, 9])
+def test_llama3_first_step_meets_chip_step_tolerances(monkeypatch, seed):
+    """``run_llama3_trainer`` holds the first step through the kernels to
+    the same step through the plain attention: the loss within
+    ``LLAMA3_STEP_LOSS_TOL``, the pre-clip grad norm within
+    ``STEP_NORM_RTOL``.  Here the emulated kernels at a Llama-3-shaped cut
+    (head_dim 128, 4:1 GQA, vocab 128256, bf16, remat, loss chunks of 256;
+    d_model 512, two layers, 1024 tokens) stay inside both."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.step import tree_leaves, tree_map
+
+    monkeypatch.setitem(tattn.ATTENTION, "emulated",
+                        lambda q, k, v, causal: tattn._packed_call(
+                            _Emulated.apply, q, k, v, causal, None))
+    cfg = llama.LlamaConfig(d_model=512, n_heads=4, n_kv_heads=1,
+                            d_ff=1792, n_layers=2, max_seq_len=1024)
+    assert (cfg.head_dim, cfg.vocab_size, cfg.remat) == (128, 128256, True)
+    state = llama.init(cfg, torch.Generator().manual_seed(seed),
+                       device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1025),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    got = {}
+    for impl in ("plain", "emulated"):
+        params = tree_map(lambda t: t.detach().requires_grad_(), state)
+        loss = llama.loss_fn(params, tokens, cfg, attn_impl=impl)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+        got[impl] = (loss.item(), norm.item())
+    d_loss = abs(got["emulated"][0] - got["plain"][0])
+    d_norm = abs(got["emulated"][1] - got["plain"][1])
+    assert 0 < d_loss <= chip_smoke.LLAMA3_STEP_LOSS_TOL
+    assert d_norm <= chip_smoke.STEP_NORM_RTOL * got["plain"][1]

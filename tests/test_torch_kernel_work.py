@@ -180,3 +180,88 @@ def test_moe_drop_share_matches_route(factor):
     keep = moe.route(cfg, h, w)["keep"]
     assert share == pytest.approx(1 - float(keep.float().mean()), abs=1e-9)
     assert (share > 0) == (factor == 0.5)
+
+
+def test_llama3_shape_bounds():
+    """The Llama-3 trainer's attention (b 2, 32 heads on 8 KV heads, s
+    8192, d 128, bf16, causal): every kernel is bound by its operations,
+    the forward by 1.1 TFLOP."""
+    _, b, h, hkv, s, d = chip_smoke.LLAMA3_SHAPE
+    bh, bh_kv = b * h, b * hkv
+    pairs = s * (s + 1) // 2  # 33,558,528 per head
+    ops, nbytes = chip_smoke.attention_work(bh, s, s, d, True, 2, bh_kv)
+    assert ops == 4 * d * pairs * bh == 1_099_645_845_504
+    assert nbytes == _nbytes(((bh, s, d), 2), ((bh_kv, s, d), 2),
+                             ((bh_kv, s, d), 2), ((bh, s, d), 2),
+                             ((bh, s), 4))
+    assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == "operations"
+    for kernel, per_pair in (("flash_bwd_dkv", 8), ("flash_bwd_dq", 6)):
+        ops, nbytes = chip_smoke.attention_bwd_work(kernel, bh, bh_kv, s, s,
+                                                    d, True, 2)
+        assert ops == per_pair * d * pairs * bh
+        assert chip_smoke.bound_ms(ops, nbytes, "bfloat16")[1] == \
+            "operations"
+    # the plain versions are held at the same 4:1 GQA
+    pb, ph, phkv = chip_smoke.LLAMA3_PLAIN
+    assert ph // phkv == h // hkv and ph < h
+
+
+def test_llama3_param_counts_and_memory_reckoning():
+    """Llama-3 8B's widths: 218.1M parameters a layer, 1,050.7M of
+    embedding and head; at 28 B a parameter four layers need 53.8 GB of
+    the card's 80 GB and six 66.1 GB, ~76 GB with the bf16 casts and the
+    remat activations beside it; a checkpoint of the weights and both
+    moments is 23.1 GB."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.step import tree_leaves
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=chip_smoke.LLAMA3_LAYERS)
+    c = chip_smoke.llama3_param_counts(cfg)
+    assert c["attention"] == 41_943_040
+    assert c["mlp"] == 176_160_768
+    assert c["per_layer"] == 218_112_000
+    assert c["embed_and_head"] == 1_050_673_152
+    assert c["total"] == 1_923_125_248 == 4 * 218_112_000 + 1_050_673_152 \
+        + 4096
+    state = c["total"] * chip_smoke.LLAMA3_BYTES_PER_PARAM
+    assert 53e9 < state < 54e9
+    six = chip_smoke.llama3_param_counts(dataclasses.replace(cfg, n_layers=6))
+    assert 66e9 < six["total"] * chip_smoke.LLAMA3_BYTES_PER_PARAM < 67e9
+    assert 23e9 < c["total"] * chip_smoke.LLAMA3_CKPT_BYTES_PER_PARAM < 23.2e9
+    full = chip_smoke.llama3_param_counts(llama.LlamaConfig.llama3_8b())
+    assert 8.0e9 < full["total"] < 8.1e9  # Llama-3 8B
+    # the counts are the init tree's, at a small width
+    small = llama.LlamaConfig.llama3_8b_dry()
+    state = llama.init(small, torch.Generator().manual_seed(0), device="cpu")
+    assert sum(t.numel() for t in tree_leaves(state)) == \
+        chip_smoke.llama3_param_counts(small)["total"]
+
+
+def test_chunked_plain_attention_is_the_plain_attention():
+    """chip_smoke.py's plain attention one KV head's query group at a time
+    gives the plain attention's output and gradients (GQA 4:1, two
+    sequences, causal and not)."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+
+    chunked = chip_smoke.chunked_plain_attention()
+    g = torch.Generator().manual_seed(5)
+    base = [torch.randn(shape, generator=g) for shape in
+            ((2, 48, 8, 16), (2, 48, 2, 16), (2, 48, 2, 16))]
+    w = torch.randn(2, 48, 8, 16, generator=g)
+    for causal in (True, False):
+        got = {}
+        for name, fn in (("plain", attention.plain_attention),
+                         ("chunked", chunked)):
+            leaves = [x.clone().requires_grad_() for x in base]
+            out = fn(*leaves, causal=causal)
+            got[name] = (out, *torch.autograd.grad((out * w).sum(), leaves))
+        # the same f32 math in products of other shapes: a few ulps
+        for a, b in zip(got["chunked"], got["plain"]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
