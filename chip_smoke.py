@@ -38,14 +38,26 @@ Phases, each fatal on failure:
      engine metrics agreeing with the phase's own counts, and the forward
      kernel launched during the phase; the handoff's extract and inject
      GB/s and seal and hydrate ms;
-  7. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
+  7. routed serving at the serving width (``run_serve_bench``): two
+     engines behind the pow-2 and prefix-aware routers under
+     ``_private/serve_bench.py``'s load-wall ladder (4:128, 16:256,
+     32:512: the reference's top rung cut to half its requests), then its
+     kill rung with the KV tier off and on: every request of every cell
+     completes without an error, the top rung evicts pages under both
+     policies, prefix-aware saves prefill tokens, copies COW pages and
+     hits more than pow-2, the tier-on kill cell pulls, and the forward
+     kernel launches once a layer for every prefill through
+     ``lm.prefill``; each rung's req/s, TTFT, evictions
+     and hit rate, the reference's acceptance as computed here, and the
+     device-busy share of a profiled rerun of the top prefix-aware cell;
+  8. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
      12, seq 1024): the first step's loss and grad norm through the kernels
      agree with the plain attention's, the loss falls on a repeated batch,
      each of the three wrappers launches 12 times a step, and a few steps
      are timed and profiled; the profiled step shows 12 launches of each
      tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
      (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel;
-  8. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
+  9. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
      and aux against the plain attention (on the tokens both forwards
@@ -54,7 +66,7 @@ Phases, each fatal on failure:
      launches a step, timed and profiled steps with peak memory beside
      its reckoning, and the first step on a world-size-1 NCCL mesh
      through the zigzag dispatch, equal to the step without the mesh;
-  9. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
+ 10. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
      batch 2 x seq 8192 (``run_llama3_trainer``), between two readings of
      the kernels at its attention shape (32 heads on 8 KV heads, head_dim
      128, seq 8192; the plain versions at 8 heads on 2): first
@@ -135,9 +147,12 @@ def device_events(fn, iters: int = 1, complete=bool):
     """Run ``fn`` ``iters`` times under the profiler; returns the
     device-side events' (name, total ms, count), largest first.  Only
     device events: the aten ops that launched them carry the same time
-    again.  A window whose rows ``complete`` refuses (by default one with
-    no device event at all; it has happened in runs whose kernels all ran)
-    is profiled again, up to ``PROFILE_ATTEMPTS`` windows."""
+    again.  A window is whole when every device event came ``iters``
+    times over (a whole multiple: a window that lost events, as windows
+    late in a run of many threads' launches have, is not) and ``complete``
+    accepts its rows (by default: at least one event).  A window that is
+    not whole is profiled again, up to ``PROFILE_ATTEMPTS`` windows;
+    returns [] when none was."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -153,9 +168,9 @@ def device_events(fn, iters: int = 1, complete=bool):
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
-        if complete(rows):
-            break
-    return sorted(rows, key=lambda r: -r[1])
+        if all(c % iters == 0 for _, _, c in rows) and complete(rows):
+            return sorted(rows, key=lambda r: -r[1])
+    return []
 
 
 def ptxas_report(log: str):
@@ -182,11 +197,22 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call of ``fn``: the sum of its kernels' times, free
-    of the host's launch overhead that a tight event-timed loop of small
-    calls measures instead."""
-    return sum(t for _, t, _ in device_events(fn, iters)) / iters
+def device_ms(fn, iters: int = 20, kernel=None):
+    """(ms per call of ``fn``, how it was timed).  From the profiler: the
+    sum of its kernels' times (with ``kernel``, of the events whose name
+    contains it, in a window holding exactly ``iters`` of them), free of
+    the host's launch overhead that a tight event-timed loop of small
+    calls measures instead.  Where no profiled window was whole, from
+    CUDA events around a loop of ``iters`` calls, launch gaps included."""
+    def whole(rows):
+        return bool(rows) and (kernel is None or sum(
+            c for k, _, c in rows if kernel in k) == iters)
+
+    rows = device_events(fn, iters, whole)
+    if not rows:
+        return time_ms(fn, iters), "cuda events"
+    return sum(t for k, t, _ in rows
+               if kernel is None or kernel in k) / iters, "profiler"
 
 
 def _pairs(sq, sk, causal):
@@ -284,13 +310,18 @@ LLAMA3_PLAIN = (1, 8, 2)
 def check_kernels(report):
     import torch
 
+    from ray_tpu_torch._private import serve_bench
     from ray_tpu_torch.llm.engine import EngineConfig
     from ray_tpu_torch.ops import attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
+    # every prefill bucket of the serving paths: the engine's defaults and
+    # the load wall's (a miss there prefills bucket 240, a partial tile)
+    buckets = sorted({*EngineConfig().prefill_buckets,
+                      *serve_bench._engine_config().prefill_buckets})
     for dtype in (torch.bfloat16, torch.float32):
-        for s in EngineConfig().prefill_buckets:  # every serving path's
+        for s in buckets:
             cases.append(("engine_prefill", 1, 12, 12, s, s, 64, True, dtype))
         cases.append(("entry", 2, 8, 4, 256, 256, 64, True, dtype))
         for causal in (True, False):
@@ -443,7 +474,10 @@ def time_kernels(report):
             "sdpa": lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True, scale=scale),
         }
-        dev = {n: measured(device_ms(fn)) for n, fn in calls.items()}
+        timed = {n: device_ms(fn, kernel=BF16_KERNELS["flash_fwd"]
+                              if n == "kernel" else None)
+                 for n, fn in calls.items()}
+        dev = {n: measured(ms) for n, (ms, _) in timed.items()}
         wall = {n: time_ms(fn) for n, fn in calls.items()}
         ops, nbytes = attention_work(bh, s, s, d, True, 2)
         bms, by = bound_ms(ops, nbytes, "bfloat16")
@@ -451,13 +485,15 @@ def time_kernels(report):
         ref, _ = attention.reference_attention(q, k, v, True, scale)
         rows.append({"seq": s, "bh": bh, "d": d, "dtype": "bfloat16",
                      "causal": True, "ms": dev["kernel"],
+                     "timed_by": {n: how for n, (_, how) in timed.items()},
                      "plain_ms": dev["plain"], "library_ms": dev["sdpa"],
                      "wall_ms": wall, "bound_ms": bms, "bound_by": by,
                      "ops": ops, "bytes": nbytes,
                      "max_abs_err": float((out.float() - ref.float())
                                           .abs().max())})
         print(f"time flash_fwd bh{bh} s{s} d{d} bf16 causal, device ms per "
-              f"call: kernel {fmt_ms(dev['kernel'])}, plain "
+              f"call: kernel {fmt_ms(dev['kernel'])} by "
+              f"{timed['kernel'][1]}, plain "
               f"{fmt_ms(dev['plain'])}, sdpa {fmt_ms(dev['sdpa'])}, bound "
               f"{bms:.5f} ({by}); wall ms per "
               f"call in a loop: kernel {wall['kernel']:.4f}, plain "
@@ -466,16 +502,31 @@ def time_kernels(report):
     return rows
 
 
-def kernel_device_ms(fn, names, iters: int = 10):
-    """Device ms per call of ``fn`` for each kernel whose name contains one
-    of ``names``, from the profiler; a window missing one of them is
-    profiled again, up to ``PROFILE_ATTEMPTS`` windows."""
-    def per_call(rows):
-        return {n: sum(t for k, t, _ in rows if n in k) / iters
-                for n in names}
+def bwd_kernel_calls(q, k, v, out, lse, d_out, causal, scale):
+    """{wrapper name: a call that launches that backward kernel alone} on
+    the inputs ``attention.flash_backward`` gives it (its delta computed
+    once here), for timing; these launches are not counted."""
+    import torch
 
-    return per_call(device_events(
-        fn, iters, lambda rows: all(ms > 0 for ms in per_call(rows).values())))
+    from ray_tpu_torch.ops import _build, attention
+
+    lib = _build.library("flash_bwd", attention._bind_bwd)
+    delta = attention._delta(out, d_out)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    shape = (q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+             int(causal), float(scale), attention._DTYPE_CODES[q.dtype])
+    ins = tuple(x.data_ptr() for x in (q, k, v, d_out, lse, delta))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def checked(entry, *outs):
+        def call():
+            if entry(*ins, *(x.data_ptr() for x in outs), *shape, stream):
+                raise RuntimeError(f"{entry.__name__} launch failed")
+            return outs
+        return call
+
+    return {"flash_bwd_dkv": checked(lib.rtt_flash_bwd_dkv, dk, dv),
+            "flash_bwd_dq": checked(lib.rtt_flash_bwd_dq, dq)}
 
 
 def launch_counts():
@@ -545,17 +596,15 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE, plain=None):
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               scale=scale)
 
-    fwd = kernel_device_ms(
-        lambda: attention.flash_forward(q, k, v, True, scale),
-        (BF16_KERNELS["flash_fwd"],), iters=20)
-    bwd = kernel_device_ms(
-        lambda: attention.flash_backward(q, k, v, out, lse, d_out, True,
-                                         scale),
-        (BF16_KERNELS["flash_bwd_dkv"], BF16_KERNELS["flash_bwd_dq"]))
-    dev = {
-        "flash_fwd": fwd[BF16_KERNELS["flash_fwd"]],
-        "flash_bwd_dkv": bwd[BF16_KERNELS["flash_bwd_dkv"]],
-        "flash_bwd_dq": bwd[BF16_KERNELS["flash_bwd_dq"]],
+    # each kernel alone, so that a window must hold exactly its calls and
+    # CUDA events can time it where no window does
+    one_kernel = {"flash_fwd": lambda: attention.flash_forward(
+        q, k, v, True, scale),
+        **bwd_kernel_calls(q, k, v, out, lse, d_out, True, scale)}
+    timed = {
+        **{kname: device_ms(fn, 20 if kname == "flash_fwd" else 10,
+                            BF16_KERNELS[kname])
+           for kname, fn in one_kernel.items()},
         "plain_fwd": device_ms(
             lambda: attention.reference_attention(qp, kp, vp, True, scale),
             5),
@@ -567,6 +616,7 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE, plain=None):
         "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, do4, retain_graph=True)),
     }
+    dev = {key: ms for key, (ms, _) in timed.items()}
     ref_out, _ = attention.reference_attention(qp, kp, vp, True, scale)
     got = attention.flash_backward(qp, kp, vp, outp, lsep, dp, True, scale)
     want = attention.reference_attention_backward(qp, kp, vp, outp, lsep, dp,
@@ -588,11 +638,19 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE, plain=None):
         bms, by = bound_ms(ops, nbytes, "bfloat16")
         for key in (kname, plain_key):
             if dev[key] <= 0:
-                raise SystemExit(f"the profiler saw no kernel of {key} at the "
-                                 f"{name} shape")
+                raise SystemExit(f"no time for {key} at the {name} shape")
+        # no kernel beats the card's peaks: a time below the bound is a
+        # measurement that lost work
+        if dev[kname] < bms:
+            raise SystemExit(f"{kname} at the {name} shape read "
+                             f"{dev[kname]:.5f} ms ({timed[kname][1]}), "
+                             f"below its {bms:.5f} ms bound")
         lib_ms = measured(dev[lib])
-        rows[kname] = {"ms": dev[kname], "plain_ms": dev[plain_key],
-                       "library_ms": lib_ms, "bound_ms": bms,
+        rows[kname] = {"ms": dev[kname], "timed_by": timed[kname][1],
+                       "plain_ms": dev[plain_key],
+                       "plain_timed_by": timed[plain_key][1],
+                       "library_ms": lib_ms, "library_timed_by": timed[lib][1],
+                       "bound_ms": bms,
                        "bound_by": by, "ops": ops, "bytes": nbytes,
                        "tflops": ops / dev[kname] / 1e9,
                        "bound_share": bms / dev[kname], "max_abs_err": err}
@@ -603,10 +661,11 @@ def time_attention(report, reading: int, shape=TRAINER_SHAPE, plain=None):
             at = f" at b{plain[0]} h{plain[1]}/{plain[2]}"
         print(f"time #{reading} {kname} ({BF16_KERNELS[kname]}) {name} shape "
               f"b{b} h{h}/{hkv} s{s} d{d} bf16 causal, device ms per call: "
-              f"kernel {dev[kname]:.4f} ({ops / dev[kname] / 1e9:.1f} "
+              f"kernel {dev[kname]:.4f} by {timed[kname][1]} "
+              f"({ops / dev[kname] / 1e9:.1f} "
               f"TFLOP/s, {bms / dev[kname]:.3f} of bound), plain{at} "
-              f"{dev[plain_key]:.4f} ({plain_key}), sdpa {fmt_ms(lib_ms)} "
-              f"({lib}), "
+              f"{dev[plain_key]:.4f} ({plain_key}, {timed[plain_key][1]}), "
+              f"sdpa {fmt_ms(lib_ms)} ({lib}, {timed[lib][1]}), "
               f"bound {bms:.5f} ({by}: {ops:.3e} ops, {nbytes / 1e6:.1f} MB)"
               f"; max abs err vs plain {err:.3e}", flush=True)
     report.setdefault(f"{name}_kernel_times", []).append(rows)
@@ -1451,6 +1510,244 @@ def run_frontends(report):
         raise SystemExit("the front ends never launched the flash kernel")
     del state
     torch.cuda.empty_cache()
+    return launches
+
+
+# The routed-serving phase: the load-wall ladder and the kill rung of
+# ``ray_tpu_torch/_private/serve_bench.py`` (the reference's, cut below) over
+# two engines at the serving width, then the top prefix-aware cell once
+# more at half its requests with the card profiled over a 2 s window.
+# Profiler windows later in the process can lose kernel events after
+# the engines' threads' thousands of launches; ``device_events`` takes
+# only whole windows, and a time falls back to CUDA events.  The profiler
+# slows the host-bound engines, so the window's device ms per prefill is
+# projected onto the unprofiled cell's rate.
+SERVE_BENCH_SEED = 7
+SERVE_PROFILE_S = 2.0
+# The reference's ladder with its top rung cut from 1024 requests to 512
+# (concurrency and width kept): at 1024 the phase took 98.8-199.2 s with
+# the host's speed against its 150 s budget (NVIDIA H100 80GB HBM3).
+SERVE_LADDER = ((4, 128), (16, 256), (32, 512))
+
+
+def serving_model():
+    """``bench.py``'s serving model (``run_engine``'s), cast to bf16 once
+    so that every engine shares the weights."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(
+        vocab_size=32_000, d_model=768, n_layers=12, n_heads=12,
+        n_kv_heads=12, d_ff=3072, max_seq_len=1024, remat=False)
+    state = llama.cast_weights(llama.init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        cfg)
+    return state, cfg
+
+
+def serve_busy_share(sb, model, n_requests, concurrency, start_s):
+    """Run a prefix-aware cell of ``n_requests`` at ``concurrency`` in a
+    thread and profile the card's kernels for ``SERVE_PROFILE_S`` from
+    ``start_s`` seconds after it starts; a window that saw no prefill or
+    no kernel (one has, in a run whose cell ran) is profiled again while
+    the cell runs, up to ``PROFILE_ATTEMPTS`` windows.  Only device
+    activity is traced: tracing the engines' host ops would slow them
+    further.  Returns the cell's result, the windows profiled, and the
+    last window's ms, prefills, device-busy ms and top kernels."""
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.serve.request_router import PrefixAwareRouter
+
+    out = {}
+
+    def cell():
+        try:
+            out["cell"] = sb._run_cell(model, PrefixAwareRouter, n_requests,
+                                       concurrency, SERVE_BENCH_SEED, "cuda")
+        except Exception as e:  # noqa: BLE001 — re-raised by the caller
+            out["error"] = e
+
+    t = threading.Thread(target=cell)
+    t.start()
+    time.sleep(start_s)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            n0, t0 = metric_total("llm_prefills_total"), time.perf_counter()
+            time.sleep(SERVE_PROFILE_S)
+            window_ms = (time.perf_counter() - t0) * 1e3
+            prefills = metric_total("llm_prefills_total") - n0
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        if (prefills > 0 and rows) or not t.is_alive():
+            break
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return {"concurrency": concurrency, "requests": n_requests,
+            "result": out["cell"], "windows": attempt,
+            "window_ms": window_ms, "window_prefills": prefills,
+            "device_busy_ms": sum(r[1] for r in rows),
+            "top": [{"kernel": k[:90], "ms": t_, "count": c}
+                    for k, t_, c in rows[:6]]}
+
+
+def run_serve_bench(report):
+    """Routed serving at the serving width (``run_engine``'s model, bf16):
+    ``serve_bench.run``'s ladder under the pow-2 and prefix-aware
+    routers, then the kill rung with the KV tier off and on, on two
+    engines sharing the card, then the profiled rerun of the top
+    prefix-aware cell.  Gates: every request of every cell completes
+    without an error, the top rung evicts pages under both policies,
+    prefix-aware saves prefill tokens, copies COW pages and hits more than
+    pow-2, the tier-on kill cell pulls, and the forward kernel launches
+    once a layer for every prefill that took ``lm.prefill`` (a full miss;
+    a hit's suffix takes ``lm.prefill_with_prefix`` and the plain paged
+    attention), both counted over ``serve_bench.run`` alone.  The
+    reference's speed comparisons are measured, not gated.  Returns the
+    kernel's launches."""
+    import statistics
+    import threading
+
+    import torch
+
+    from ray_tpu_torch._private import serve_bench as sb
+    from ray_tpu_torch.llm import model as lm
+    from ray_tpu_torch.ops import attention
+
+    model = serving_model()
+    n_layers = model[1].n_layers
+    # count the prefills by path, with each call's host ms (its launches:
+    # the logits are read after it returns); the engines call both
+    # through the module, from their scheduler threads
+    plain = {"kernel": lm.prefill, "suffix": lm.prefill_with_prefix}
+    call_ms, lock = {path: [] for path in plain}, threading.Lock()
+
+    def counted(path):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return plain[path](*args, **kwargs)
+            finally:
+                with lock:
+                    call_ms[path].append((time.perf_counter() - t0) * 1e3)
+        return call
+
+    t_phase = time.monotonic()
+    lm.prefill, lm.prefill_with_prefix = counted("kernel"), counted("suffix")
+    attention.flash_forward.launches = 0
+    try:
+        res = sb.run(model, SERVE_LADDER, SERVE_BENCH_SEED, "cuda")
+        torch.cuda.synchronize()
+        launches = attention.flash_forward.launches
+    finally:
+        lm.prefill, lm.prefill_with_prefix = plain["kernel"], plain["suffix"]
+    bench_s = time.monotonic() - t_phase
+    kernel_prefills = len(call_ms["kernel"])
+    c, n = SERVE_LADDER[-1]
+    top_cell = res["ladder"][-1]["prefix_aware"]
+    prof = serve_busy_share(sb, model, n // 2, c, top_cell["wall_s"] / 16)
+    phase_s = time.monotonic() - t_phase
+
+    for row in res["ladder"]:
+        for policy in ("pow2", "prefix_aware"):
+            cell = row[policy]
+            print(f"serve_bench c={row['concurrency']} n={row['requests']} "
+                  f"{policy}: {cell['requests']} done, {cell['req_per_s']} "
+                  f"req/s, TTFT p50 {cell['ttft_p50_ms']} / p90 "
+                  f"{cell['ttft_p90_ms']} ms, e2e p90 {cell['e2e_p90_ms']} "
+                  f"ms, evictions {cell['page_evictions']} (cold family "
+                  f"{cell['evictions_cold_family']}, hot root forced "
+                  f"{cell['evictions_hot_root_forced']}), COW "
+                  f"{cell['cow_copies']}, saved "
+                  f"{cell['prefill_tokens_saved']}, hit rate "
+                  f"{cell['prefix_hit_rate']}, preempted "
+                  f"{cell['preempted']}, prefill p50/p90 ms by engine "
+                  f"{cell['prefill_ms_p50_p90']}, decisions "
+                  f"{cell['decisions']}", flush=True)
+    kill = res["kill_rung"]
+    for name in ("tier_off", "tier_on"):
+        cell = kill[name]
+        print(f"serve_bench kill rung {name}: {cell['requests_completed']}"
+              f"/{kill['requests']} completed, {cell['errors']} errors, "
+              f"{cell['failovers']} failovers, {cell['wall_s']} s, recovery "
+              f"{cell['recovery_s']} s, extra prefill tokens "
+              f"{cell['extra_prefill_tokens_post_kill']}, pulls "
+              f"{cell['kv_pulls']} ({cell['kv_pull_pages']} pages), seals "
+              f"{cell['kv_seals']}", flush=True)
+    call_p50 = {path: statistics.median(v) if v else None
+                for path, v in call_ms.items()}
+    print(f"serve_bench prefill calls, host ms a call (launches, before "
+          f"the logits are read): through the kernel (bucket 240) p50 "
+          f"{fmt_ms(call_p50['kernel'])} over {len(call_ms['kernel'])}, "
+          f"suffix after a hit (bucket 16) p50 {fmt_ms(call_p50['suffix'])}"
+          f" over {len(call_ms['suffix'])}", flush=True)
+    # a window that traced no kernel measured nothing (not an idle card)
+    busy_ms, window_ms = prof["device_busy_ms"], prof["window_ms"]
+    traced = bool(prof["top"]) and prof["window_prefills"] > 0
+    prof["busy_share_profiled"] = busy_ms / window_ms if traced else None
+    prof["device_ms_per_prefill"] = (busy_ms / prof["window_prefills"]
+                                     if traced else None)
+    prof["busy_share_top_cell"] = (
+        prof["device_ms_per_prefill"] * top_cell["req_per_s"] / 1e3
+        if traced else None)
+    print(f"serve_bench profiled prefix-aware cell c={prof['concurrency']} "
+          f"n={prof['requests']}: {prof['result']['req_per_s']} req/s "
+          f"under the profiler; in window {prof['windows']}, "
+          f"{window_ms:.1f} ms, the card was busy "
+          f"{busy_ms:.1f} ms over {prof['window_prefills']:g} prefills = "
+          + fmt_ms(prof["device_ms_per_prefill"]) + " device ms a prefill;"
+          " busy share " + ("not measured" if not traced else
+                            f"{prof['busy_share_profiled']:.3f} under the "
+                            f"profiler, {prof['busy_share_top_cell']:.3f} at "
+                            f"the unprofiled top cell's "
+                            f"{top_cell['req_per_s']} req/s")
+          + "; top: " + "; ".join(f"{r['kernel'][:40]} {r['ms']:.1f} ms "
+                                  f"x{r['count']}" for r in prof["top"][:4]),
+          flush=True)
+    print(f"serve_bench acceptance (the reference's, computed here): "
+          f"{res['acceptance']}", flush=True)
+    print(f"serve_bench: flash forward launches {launches} over "
+          f"{kernel_prefills} kernel-path prefills; bench "
+          f"{bench_s:.1f} s, phase {phase_s:.1f} s", flush=True)
+    res.update({"phase_s": phase_s, "bench_s": bench_s,
+                "kernel_prefills": kernel_prefills,
+                "flash_launches": launches,
+                "prefill_calls": {p: len(v) for p, v in call_ms.items()},
+                "prefill_call_p50_ms": call_p50, "profiled_cell": prof})
+    report["serve_bench"] = res
+
+    top_row = res["ladder"][-1]
+    cells = [(row["concurrency"], p, row[p]["requests"], row["requests"])
+             for row in res["ladder"] for p in ("pow2", "prefix_aware")]
+    cells.append((prof["concurrency"], "profiled",
+                  prof["result"]["requests"], prof["requests"]))
+    short = [x for x in cells if x[2] != x[3]]
+    if short:
+        raise SystemExit(f"serve_bench cells left requests undone: {short}")
+    if not all(kill[k]["errors"] == 0
+               and kill[k]["requests_completed"] == kill["requests"]
+               for k in ("tier_off", "tier_on")):
+        raise SystemExit("the kill rung failed or wedged requests")
+    if not (top_row["pow2"]["page_evictions"] > 0
+            and top_row["prefix_aware"]["page_evictions"] > 0):
+        raise SystemExit("the top rung never reached the load wall")
+    aware = top_row["prefix_aware"]
+    if not (aware["prefill_tokens_saved"] > 0 and aware["cow_copies"] > 0):
+        raise SystemExit("prefix-aware saved no prefill or copied no page")
+    if not aware["prefix_hit_rate"] > top_row["pow2"]["prefix_hit_rate"]:
+        raise SystemExit("prefix-aware routing hit no more than pow-2")
+    if kill["tier_on"]["kv_pulls"] < 1:
+        raise SystemExit("the tier-on kill cell pulled no spine")
+    if not (launches > 0 and launches == n_layers * kernel_prefills):
+        raise SystemExit(f"flash forward launches {launches} != "
+                         f"{n_layers} x {kernel_prefills} kernel-path "
+                         f"prefills")
     return launches
 
 
@@ -2313,6 +2610,7 @@ def main() -> int:
     check_apply(report)
     engine_launches = run_engine(report)
     frontend_launches = run_frontends(report)
+    serve_launches = run_serve_bench(report)
     trainer_launches = run_trainer(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
@@ -2337,13 +2635,15 @@ def main() -> int:
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":
             by_path = {"engine": engine_launches,
-                       "frontends": frontend_launches, **by_path}
+                       "frontends": frontend_launches,
+                       "serve_bench": serve_launches, **by_path}
         entry = {"name": name, "route": "cuda",
                  "source": f"ray_tpu_torch/ops/csrc/{src}",
                  "replaces": replaces,
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "timed_by": row["timed_by"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"],

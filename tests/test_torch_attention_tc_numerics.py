@@ -51,6 +51,9 @@ CASES = {
     # the last block of a sequence that is not a multiple of the block
     "ragged_100_causal": (1, 4, 2, 100, 100, 32, True, 256),
     "ragged_77x130_full": (2, 4, 1, 77, 130, 64, False, 256),
+    # the load wall's miss prefill (serve_bench bucket 240): a partial
+    # 64-row tile on the causal diagonal at head_dim 64
+    "serve_bucket_240_causal": (1, 2, 2, 240, 240, 64, True, 256),
 }
 
 
