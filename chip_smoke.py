@@ -78,7 +78,23 @@ Phases, each fatal on failure:
      then the same step in this process on a world-size-1 NCCL mesh: the
      first step against the plain attention (one KV head's group at a
      time), the loss falling, 8 / 4 / 4 launches a step, timed and
-     profiled steps with peak memory beside its reckoning.
+     profiled steps with peak memory beside its reckoning;
+ 11. online RLlib (``run_rllib``), the learners on the card and the env
+     runners' forward on the CPU: (a) each learner update on the card
+     against the same update on the CPU, from the same parameters and a
+     recorded batch (``ppo_update`` over PPOConfig's 4 epochs x 4
+     minibatches with one permutation generator, ``_impala_update``,
+     ``_dqn_update`` with double Q on and off, ``_sac_update``, one
+     multi-agent update): parameters, Adam moments and losses within the
+     CPU parity tests' tolerance; (b) PPO at ``tests/test_rllib.py``'s
+     configuration on ``NumpyCartPole`` (gymnasium's CartPole-v1 in
+     numpy) passing that test's gate, with the learner's tensors on
+     ``cuda`` and the runners' forward on ``cpu``, each iteration's
+     sample s, update ms and env steps/s, and one profiled ``ppo_update``
+     (device-busy ms, idle share, launches, top device operations);
+     (c) APPO, IMPALA, DQN, SAC and multi-agent PPO at their JAX tests'
+     configurations and gates, each with its best return, env steps/s
+     and update ms p50.
 The last three lines are the kernels' JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no result,
@@ -2574,6 +2590,525 @@ def _llama3_steps(report, cfg, mesh, n_params, n_tok, need_mem):
                     for k, t, c in rows[:20]]}
 
 
+# --------------------------------------------------------------------------
+# Online RLlib (phase 11).  The card's machine has no gymnasium, so the
+# phase steps this CartPole; tests/test_torch_rllib_envs.py holds it to
+# gymnasium's CartPole-v1 step for step.
+
+
+class NumpyCartPole:
+    """gymnasium's ``CartPole-v1`` in numpy: Euler steps of tau 0.02 s,
+    force 10, failure past 12 degrees or 2.4 from the centre, truncation
+    at 500 steps (gymnasium's ``TimeLimit``), a reset drawing the state
+    uniformly in +-0.05 from ``np.random.default_rng(seed)`` (gymnasium's
+    ``np_random``), float32 observations from a float64 state."""
+
+    GRAVITY, MASSCART, MASSPOLE, LENGTH = 9.8, 1.0, 0.1, 0.5
+    FORCE_MAG, TAU = 10.0, 0.02
+    THETA_THRESHOLD = 12 * 2 * math.pi / 360
+    X_THRESHOLD = 2.4
+    MAX_STEPS = 500
+
+    def __init__(self):
+        import numpy as np
+
+        high = np.array([self.X_THRESHOLD * 2, np.inf,
+                         self.THETA_THRESHOLD * 2, np.inf], np.float32)
+        self.observation_space = types.SimpleNamespace(
+            shape=(4,), low=-high, high=high, dtype=np.float32)
+        self.action_space = types.SimpleNamespace(n=2)
+        self._rng = np.random.default_rng()
+        self._state = None
+        self._t = 0
+        self._done = False
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(low=-0.05, high=0.05, size=(4,))
+        self._t, self._done = 0, False
+        return self._state.astype(np.float32), {}
+
+    def step(self, action):
+        import numpy as np
+
+        x, x_dot, theta, theta_dot = self._state
+        force = self.FORCE_MAG if action == 1 else -self.FORCE_MAG
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        total_mass = self.MASSPOLE + self.MASSCART
+        polemass_length = self.MASSPOLE * self.LENGTH
+        temp = (force + polemass_length * np.square(theta_dot) * sintheta
+                ) / total_mass
+        thetaacc = (self.GRAVITY * sintheta - costheta * temp) / (
+            self.LENGTH * (4.0 / 3.0 - self.MASSPOLE * np.square(costheta)
+                           / total_mass))
+        xacc = temp - polemass_length * thetaacc * costheta / total_mass
+        x = x + self.TAU * x_dot
+        x_dot = x_dot + self.TAU * xacc
+        theta = theta + self.TAU * theta_dot
+        theta_dot = theta_dot + self.TAU * thetaacc
+        self._state = np.array((x, x_dot, theta, theta_dot), np.float64)
+        terminated = bool(x < -self.X_THRESHOLD or x > self.X_THRESHOLD
+                          or theta < -self.THETA_THRESHOLD
+                          or theta > self.THETA_THRESHOLD)
+        reward = 0.0 if self._done else 1.0  # 0 only past a termination
+        self._done = self._done or terminated
+        self._t += 1
+        return (self._state.astype(np.float32), reward, terminated,
+                self._t >= self.MAX_STEPS, {})
+
+
+# tests/test_torch_rllib.py's tolerance for an update, CPU against JAX, of
+# the largest magnitude compared (at least 1).  Adam divides by
+# sqrt(nu_hat) + 1e-8: an entry whose gradient is near that eps (sqrt(nu_hat)
+# above 0 and below RL_ILL) carries the summation order of its gradient
+# into its update at full relative size; such parameter entries are held to
+# RL_ADAM_TOL instead (ROADMAP §3), and their share is reported.
+RL_UPDATE_TOL, RL_ILL, RL_ADAM_TOL = 1e-5, 1e-6, 1e-4
+
+
+def rl_state_err(got, want, opt_state=None):
+    """(the largest |got - want| over the leaves of two trees, each leaf's
+    over max(1, its largest |want|); the same over the entries near Adam's
+    eps by ``opt_state``, ``want``'s Adam state; their share).  Without
+    ``opt_state`` every entry is ordinary."""
+    import numpy as np
+
+    from ray_tpu_torch.train.step import tree_leaves
+
+    def arrays(tree):
+        return [np.asarray(t.detach().cpu(), np.float64)
+                for t in tree_leaves(tree)]
+
+    got, want = arrays(got), arrays(want)
+    if opt_state is None:
+        ill = [np.zeros(w.shape, bool) for w in want]
+    else:
+        # an entry whose gradient was always 0 (a head the loss does not
+        # use) takes no step on either side: it is ordinary
+        corr = 1.0 - 0.999 ** opt_state["count"]
+        ill = [(np.sqrt(n / corr) < RL_ILL) & (n > 0)
+               for n in arrays(opt_state["nu"])]
+    ordinary = soft = 0.0
+    for g, w, i in zip(got, want, ill):
+        d = np.abs(g - w) / max(1.0, float(np.abs(w).max(initial=0.0)))
+        ordinary = max(ordinary, float(d[~i].max(initial=0.0)))
+        soft = max(soft, float(d[i].max(initial=0.0)))
+    share = sum(int(i.sum()) for i in ill) / max(1, sum(i.size for i in ill))
+    return ordinary, soft, share
+
+
+def rl_update_cases(runner_cls, cartpole, target_match):
+    """The recorded inputs of phase 11's update agreement: {name: (fn, its
+    CPU inputs)}, where ``fn(inputs, device)`` runs one learner update on
+    a copy of the inputs on ``device`` and returns (the trees to compare
+    by name, {name of a parameter tree: its Adam state}, which says which
+    of its entries are near Adam's eps)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import dqn, impala, module, multi_agent, ppo
+    from ray_tpu_torch.rllib import sac
+    from ray_tpu_torch.train.step import ClippedAdam
+
+    def init(obs_dim, n_actions, seed):
+        return module.init_mlp(module.MLPConfig(obs_dim, n_actions),
+                               torch.Generator().manual_seed(seed), "cpu")
+
+    def on(tree, dev):
+        return module.tree_to(tree, dev, copy=True)
+
+    def fresh(params, dev):
+        p = on(params, dev)
+        return p, ClippedAdam().init(p)
+
+    rng = np.random.default_rng(5)
+    params = init(4, 2, 11)
+    cases = {}
+
+    # PPO: PPOConfig's defaults, 2 runners x 4 envs x 128 steps, 4 epochs
+    # of 4 minibatches of 256, one permutation generator on both sides
+    pcfg = ppo.PPOConfig()
+    runners = [runner_cls(cartpole, pcfg.num_envs_per_runner, seed=1000 * i)
+               for i in range(pcfg.num_env_runners)]
+    frags = [r.sample(params, pcfg.rollout_fragment_length)
+             for r in runners]
+
+    def ppo_case(inputs, dev):
+        p, s = fresh(params, dev)
+        batch = ppo.frags_to_batch(inputs, params, pcfg, dev)
+        p, s, stats = ppo.ppo_update(
+            p, s, batch, torch.Generator().manual_seed(0),
+            num_epochs=pcfg.num_epochs, minibatch_size=pcfg.minibatch_size,
+            clip=pcfg.clip_param, ent_coeff=pcfg.entropy_coeff,
+            vf_coeff=pcfg.vf_loss_coeff, grad_clip=pcfg.grad_clip,
+            lr=pcfg.lr)
+        return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                "stats": list(stats.values())}, {"params": s}
+
+    cases["ppo_update"] = (ppo_case, frags)
+
+    # IMPALA: one fragment of IMPALAConfig's 64 steps x 4 envs
+    icfg = impala.IMPALAConfig()
+    rollout = runners[0].sample(params, icfg.rollout_fragment_length)
+
+    def impala_case(r, dev):
+        p, s = fresh(params, dev)
+        cols = {"obs": r["obs"], "actions": r["actions"].astype(np.int64),
+                "behavior_logp": r["logp"] - 0.05,  # a stale behavior
+                "rewards": r["rewards"] + icfg.gamma * r["trunc_values"],
+                "dones": r["dones"].astype(np.float32),
+                "last_obs": r["last_obs"]}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+        p, s, loss, aux = impala._impala_update(
+            p, s, batch, lr=icfg.lr, grad_clip=icfg.grad_clip,
+            gamma=icfg.gamma, rho_clip=icfg.vtrace_rho_clip,
+            c_clip=icfg.vtrace_c_clip, vf_coeff=icfg.vf_loss_coeff,
+            ent_coeff=icfg.entropy_coeff)
+        return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                "losses": [loss, *aux]}, {"params": s}
+
+    cases["impala_update"] = (impala_case, rollout)
+
+    # DQN: 64 transitions (DQNConfig's train batch) at epsilon 0.5 under
+    # importance weights, against a separate target network
+    transitions = runners[1].sample_transitions(params, 16, epsilon=0.5)
+    transitions["weights"] = rng.uniform(0.1, 1.0, 64).astype(np.float32)
+    target = init(4, 2, 12)
+    dcfg = dqn.DQNConfig()
+
+    def dqn_case(double_q):
+        def run(t, dev):
+            p, s = fresh(params, dev)
+            batch = {k: torch.from_numpy(
+                v.astype(np.int64) if k == "actions" else v).to(dev)
+                for k, v in t.items()}
+            p, s, loss, td = dqn._dqn_update(
+                p, on(target, dev), s, batch, double_q=double_q,
+                grad_clip=dcfg.grad_clip, lr=dcfg.lr, gamma=dcfg.gamma)
+            return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                    "loss": [loss], "td": [td]}, {"params": s}
+        return run
+
+    cases["dqn_update_double_q"] = (dqn_case(True), transitions)
+    cases["dqn_update_single_q"] = (dqn_case(False), transitions)
+
+    # SAC: 128 transitions (the learning test's train batch) sampled from
+    # the softmax policy, SACConfig's rates
+    sac_t = runners[0].sample_transitions(params, 32, policy="softmax")
+    scfg = sac.SACConfig()
+    q0 = {"q1": init(4, 2, 13), "q2": init(4, 2, 14)}
+    q_target0 = {"q1": init(4, 2, 15), "q2": init(4, 2, 16)}
+
+    def sac_case(t, dev):
+        pi, pi_opt = fresh(params, dev)
+        q, q_opt = fresh(q0, dev)
+        log_alpha = torch.tensor(float(np.log(scfg.initial_alpha)),
+                                 device=dev)
+        a_opt = ClippedAdam().init(log_alpha)
+        batch = {k: torch.from_numpy(
+            v.astype(np.int64) if k == "actions" else v).to(dev)
+            for k, v in t.items()}
+        out = sac._sac_update(
+            pi, q, on(q_target0, dev), log_alpha, pi_opt, q_opt, a_opt,
+            batch, gamma=scfg.gamma, tau=scfg.tau, actor_lr=scfg.actor_lr,
+            critic_lr=scfg.critic_lr, alpha_lr=scfg.alpha_lr,
+            grad_clip=scfg.grad_clip,
+            target_entropy=scfg.target_entropy_scale * float(np.log(2)))
+        names = ("pi_params", "q_params", "q_target", "log_alpha", "pi_opt",
+                 "q_opt", "a_opt", "q_loss", "pi_loss", "entropy")
+        trees = dict(zip(names, out))
+        adam = {"pi_params": trees["pi_opt"], "q_params": trees["q_opt"],
+                "log_alpha": trees["a_opt"]}
+        for k in ("pi_opt", "q_opt", "a_opt"):
+            trees[k] = {"mu": trees[k]["mu"], "nu": trees[k]["nu"]}
+        return trees, adam
+
+    cases["sac_update"] = (sac_case, sac_t)
+
+    # multi-agent PPO: one policy's update on TargetMatchEnv at the
+    # learning test's configuration (128 steps, 6 epochs of one minibatch)
+    mcfg = multi_agent.MultiAgentPPOConfig(env=target_match, num_epochs=6,
+                                           rollout_fragment_length=128)
+    ma_runner = multi_agent.MultiAgentEnvRunner(
+        target_match, lambda a: f"p_{a}", seed=0)
+    ma_params = init(target_match.N_ACTIONS, target_match.N_ACTIONS, 17)
+    ma_frag = ma_runner.sample({"p_a0": ma_params, "p_a1": ma_params},
+                               mcfg.rollout_fragment_length)["p_a0"]
+
+    def ma_case(frag, dev):
+        p, s = fresh(ma_params, dev)
+        batch = ppo.frags_to_batch([frag], ma_params, mcfg, dev)
+        p, s, stats = ppo.ppo_update(
+            p, s, batch, torch.Generator().manual_seed(0),
+            num_epochs=mcfg.num_epochs,
+            minibatch_size=min(mcfg.minibatch_size, batch["obs"].shape[0]),
+            clip=mcfg.clip_param, ent_coeff=mcfg.entropy_coeff,
+            vf_coeff=mcfg.vf_loss_coeff, grad_clip=mcfg.grad_clip,
+            lr=mcfg.lr)
+        return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                "stats": list(stats.values())}, {"params": s}
+
+    cases["multi_agent_update"] = (ma_case, ma_frag)
+    return cases
+
+
+def rl_update_agreement(report, device):
+    """Phase 11 (a): each learner update on ``device`` against the same
+    update on the CPU, from the same parameters and recorded batch."""
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.examples import TargetMatchEnv
+
+    rows, bad = {}, []
+    for name, (fn, inputs) in rl_update_cases(
+            EnvRunner, NumpyCartPole, TargetMatchEnv).items():
+        want, adam = fn(inputs, "cpu")
+        got, _ = fn(inputs, device)
+        # parameters carry Adam's near-eps entries; moments, losses and TD
+        # errors are held to the ordinary tolerance
+        errs = {key: rl_state_err(got[key], want[key], adam.get(key))
+                for key in want}
+        worst = max(e[0] for e in errs.values())
+        soft = max(e[1] for e in errs.values())
+        share = max(e[2] for e in errs.values())
+        rows[name] = {"max_abs_err": worst, "ill_conditioned_err": soft,
+                      "ill_conditioned_share": share,
+                      "by_output": {k: e[0] for k, e in errs.items()}}
+        print(f"rllib {name} on {device} against the CPU: max abs err "
+              f"{worst:.3e} (tol {RL_UPDATE_TOL:.0e}); near-eps Adam "
+              f"entries {share:.4f} of them, err {soft:.3e} (tol "
+              f"{RL_ADAM_TOL:.0e})", flush=True)
+        if not (worst <= RL_UPDATE_TOL and soft <= RL_ADAM_TOL):
+            bad.append(name)
+    report["rllib"]["update_agreement"] = rows
+    if bad:
+        raise SystemExit(f"learner updates on {device} disagree with the "
+                         f"CPU: {bad}")
+
+
+def rl_learn(name, algo, iters, stop_at=None):
+    """Train ``algo`` for ``iters`` iterations (fewer once the best return
+    reaches ``stop_at``); returns (best return, last result, a row of
+    timings).  An update is one call of the algorithm's update function:
+    ``learn_time_ms`` of an iteration over its updates."""
+    best, result, per_update = -math.inf, None, []
+    t0, n_iters = time.perf_counter(), 0
+    try:
+        for _ in range(iters):
+            result = algo.train()
+            n_iters += 1
+            ret = result["episode_return_mean"]
+            if ret is not None and math.isfinite(ret):
+                best = max(best, ret)
+            n_up = result.get("num_updates", 1)  # PPO and APPO: one
+            if n_up:
+                per_update.append(result["learn_time_ms"] / n_up)
+            if stop_at is not None and best >= stop_at:
+                break
+    finally:
+        algo.stop()
+    wall = time.perf_counter() - t0
+    steps = result.get("timesteps_total", result.get("env_steps_sampled"))
+    per_update.sort()
+    row = {"iterations": n_iters, "best_return": best,
+           "env_steps": steps, "wall_s": wall,
+           "env_steps_per_s": steps / wall,
+           "update_ms_p50": (per_update[len(per_update) // 2]
+                             if per_update else None),
+           "iterations_timed": len(per_update)}
+    print(f"rllib {name}: best return {best:.2f} in {n_iters} iterations, "
+          f"{steps} env steps at {row['env_steps_per_s']:.1f}/s, update ms "
+          f"p50 {fmt_ms(row['update_ms_p50'])} over {len(per_update)} "
+          f"iterations, {wall:.2f} s", flush=True)
+    return best, result, row
+
+
+def run_rllib(report):
+    """Phase 11: online RLlib with the learners on the card and the env
+    runners' forward on the CPU."""
+    import torch
+
+    from ray_tpu_torch.rllib import module, ppo
+    from ray_tpu_torch.rllib.appo import APPOConfig
+    from ray_tpu_torch.rllib.dqn import DQNConfig
+    from ray_tpu_torch.rllib.examples import TargetMatchEnv
+    from ray_tpu_torch.rllib.impala import IMPALAConfig
+    from ray_tpu_torch.rllib.multi_agent import MultiAgentPPOConfig
+    from ray_tpu_torch.rllib.sac import SACConfig
+    from ray_tpu_torch.train.step import tree_leaves
+
+    t_phase = time.monotonic()
+    report["rllib"] = {}
+    rl_update_agreement(report, "cuda")
+
+    # (b) PPO at tests/test_rllib.py's configuration; the runners' forward
+    # devices are read through a wrapper of action_dist
+    forward_devices = set()
+    action_dist = module.action_dist
+
+    def recorded(params, obs, generator):
+        forward_devices.update({obs.device.type, generator.device.type,
+                                *(t.device.type for t in
+                                  tree_leaves(params))})
+        return action_dist(params, obs, generator)
+
+    module.action_dist = recorded
+    try:
+        algo = ppo.PPOConfig().environment(NumpyCartPole).env_runners(
+            num_env_runners=2, num_envs_per_env_runner=4,
+            rollout_fragment_length=128,
+        ).training(lr=3e-3, num_epochs=6, minibatch_size=256,
+                   entropy_coeff=0.01, seed=3).build()
+        learner_devices = {t.device.type for t in tree_leaves(algo.params)}
+        first, iters = None, []
+        t0 = time.perf_counter()
+        for _ in range(12):
+            result = algo.train()
+            if first is None and result["num_episodes"] > 0:
+                first = result["episode_return_mean"]
+            n = 2 * 4 * 128
+            it = {"return": result["episode_return_mean"],
+                  "sample_s": result["sample_time_s"],
+                  "update_ms": result["learn_time_ms"],
+                  "env_steps_per_s": n / result["time_this_iter_s"]}
+            iters.append(it)
+            print(f"rllib ppo iteration {result['training_iteration']}: "
+                  f"return {it['return']:.2f}, sample {it['sample_s']:.4f} "
+                  f"s, update {it['update_ms']:.2f} ms, "
+                  f"{it['env_steps_per_s']:.1f} env steps/s", flush=True)
+        ppo_wall = time.perf_counter() - t0
+    finally:
+        module.action_dist = action_dist
+    learner_devices |= {t.device.type for t in tree_leaves(algo.params)}
+    last = result["episode_return_mean"]
+    ok_ppo = (result["training_iteration"] == 12
+              and result["timesteps_total"] == 12 * 2 * 4 * 128
+              and last > max(60.0, (first or 0) * 1.5))
+    print(f"rllib ppo (tests/test_rllib.py's configuration, NumpyCartPole):"
+          f" first {first}, last {last:.2f}, gate > "
+          f"{max(60.0, (first or 0) * 1.5):.2f}; {result['timesteps_total']}"
+          f" env steps in {ppo_wall:.2f} s; learner on {learner_devices}, "
+          f"runners' forward on {forward_devices}", flush=True)
+
+    # one ppo_update under the profiler, on copies of the learner's state
+    # and a fresh batch, with no sampling in flight
+    frags, behavior = algo._collect()
+    algo.stop()
+    batch = ppo.frags_to_batch(frags, behavior, algo.config, "cuda")
+    cfg = algo.config
+
+    p = module.tree_to(algo.params, "cuda", copy=True)
+    s = module.tree_to(algo.opt_state, "cuda", copy=True)
+
+    def update():
+        _, _, stats = ppo.ppo_update(
+            p, s, batch, torch.Generator().manual_seed(0),
+            num_epochs=cfg.num_epochs, minibatch_size=cfg.minibatch_size,
+            clip=cfg.clip_param, ent_coeff=cfg.entropy_coeff,
+            vf_coeff=cfg.vf_loss_coeff, grad_clip=cfg.grad_clip, lr=cfg.lr)
+        return stats
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    update_ms = sorted(walls)[1]
+    rows = device_events(update)
+    busy = sum(r[1] for r in rows) if rows else None
+    launches = sum(r[2] for r in rows) if rows else None
+    idle = None if busy is None else 1 - busy / update_ms
+    print(f"rllib ppo_update ({cfg.num_epochs} epochs x "
+          f"{batch['obs'].shape[0] // cfg.minibatch_size} minibatches of "
+          f"{cfg.minibatch_size}): {update_ms:.3f} ms (median of 3, host "
+          f"clock), device busy {fmt_ms(busy)} ms, idle share "
+          + ("not measured" if idle is None else f"{idle:.4f}")
+          + f", {launches} kernel launches; top: " + "; ".join(
+              f"{k[:48]} {t:.3f} ms x{c}" for k, t, c in rows[:6]),
+          flush=True)
+    report["rllib"]["ppo"] = {
+        "first_return": first, "last_return": last,
+        "timesteps_total": result["timesteps_total"], "wall_s": ppo_wall,
+        "iterations": iters, "learner_devices": sorted(learner_devices),
+        "runner_forward_devices": sorted(forward_devices),
+        "profiled_update": {
+            "update_ms": update_ms, "update_ms_readings": walls,
+            "device_busy_ms": busy, "idle_share": idle,
+            "kernel_launches": launches,
+            "top": [{"op": k[:90], "ms": t, "count": c}
+                    for k, t, c in rows[:12]]}}
+    if not ok_ppo:
+        raise SystemExit("PPO did not pass tests/test_rllib.py's gate")
+    if learner_devices != {"cuda"} or forward_devices != {"cpu"}:
+        raise SystemExit(f"learner on {learner_devices}, runners' forward "
+                         f"on {forward_devices}: want cuda and cpu")
+
+    # (c) the other algorithms at their JAX tests' configurations and gates
+    gates = {}
+    algo = APPOConfig(num_env_runners=2, num_envs_per_runner=2,
+                      rollout_fragment_length=64, lr=5e-3,
+                      minibatch_size=128, seed=0, env=NumpyCartPole).build()
+    inflight = []
+    train = algo.train
+
+    def appo_train():
+        out = train()
+        inflight.append(algo._inflight is not None)
+        return out
+
+    algo.train = appo_train
+    best, _, row = rl_learn("appo", algo, 30, stop_at=60.0)
+    gates["appo"] = (best >= 60.0 and all(inflight), row)
+
+    algo = IMPALAConfig(num_env_runners=2, num_envs_per_runner=4,
+                        rollout_fragment_length=64, lr=7e-4,
+                        entropy_coeff=0.02, seed=1,
+                        env=NumpyCartPole).build()
+    best, result, row = rl_learn("impala", algo, 30)
+    row["mean_rho"] = result.get("mean_rho")
+    gates["impala"] = (best > 60 and result["loss"] is not None
+                       and result["mean_rho"] > 0, row)
+
+    algo = DQNConfig(num_env_runners=2, num_envs_per_runner=2,
+                     rollout_fragment_length=64, learning_starts=256,
+                     train_batch_size=64, num_updates_per_iter=8,
+                     target_network_update_freq=300,
+                     epsilon_decay_steps=2500, seed=3,
+                     env=NumpyCartPole).build()
+    best, result, row = rl_learn("dqn", algo, 22)
+    gates["dqn"] = (best > 60 and result["num_updates"] > 0
+                    and result["loss"] is not None, row)
+
+    algo = SACConfig(num_env_runners=2, num_envs_per_runner=2,
+                     rollout_fragment_length=64, learning_starts=256,
+                     train_batch_size=128, num_updates_per_iter=24, seed=0,
+                     env=NumpyCartPole).build()
+    best, result, row = rl_learn("sac", algo, 45, stop_at=50.0)
+    row["alpha"] = result["alpha"]
+    gates["sac"] = (best >= 50.0 and result["alpha"] > 0.0, row)
+
+    algo = MultiAgentPPOConfig(
+        env=TargetMatchEnv, policy_mapping_fn=lambda a: f"p_{a}",
+        num_env_runners=1, rollout_fragment_length=128, seed=0, lr=5e-3,
+        num_epochs=6).build()
+    best, result, row = rl_learn("multi_agent_ppo", algo, 15, stop_at=24.0)
+    row["per_agent_return_mean"] = result["per_agent_return_mean"]
+    gates["multi_agent_ppo"] = (
+        best >= 24.0 and set(result["policies"]) == {"p_a0", "p_a1"}
+        and min(result["per_agent_return_mean"].values()) >= 9.0, row)
+
+    report["rllib"]["algorithms"] = {k: row for k, (_, row) in gates.items()}
+    report["rllib"]["phase_s"] = time.monotonic() - t_phase
+    print(f"rllib phase: {report['rllib']['phase_s']:.1f} s", flush=True)
+    failed = [k for k, (ok, _) in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"RL learning gates failed: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -2619,6 +3154,7 @@ def main() -> int:
     llama3_launches = run_llama3_trainer(report)
     llama3.append(time_attention(report, 2, LLAMA3_SHAPE, LLAMA3_PLAIN))
     second = time_attention(report, 2)
+    run_rllib(report)
 
     # times at the trainer's shape, and at the MoE trainer's under
     # at_mixtral_shape; launches are the counted runs of every path

@@ -1,8 +1,9 @@
 """Carry JAX parameter trees (as numpy) into the port unchanged.
 
 The JAX package's Llama, GPT-2 and MoE parameters are nested dicts of arrays
-with layers stacked on a leading axis; the port keeps that layout and those
-keys, so one walk serves both.  The caller turns the JAX tree into numpy
+with layers stacked on a leading axis, and its RLlib MLPs keep their torso
+as a list of layers; the port keeps those layouts and keys, so one walk
+serves them all.  The caller turns the JAX tree into numpy
 (``jax.tree.map(np.asarray, params)``) so that nothing here imports JAX.
 No value is cast: the forwards cast matmul weights and norms to
 ``cfg.dtype`` on use and keep ``lm_head`` in f32 where JAX does.
@@ -36,6 +37,8 @@ def params_from_jax(tree: Dict, device: DeviceLike = None) -> Dict:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
         return _tensor(node, dev)
 
     return walk(tree)
@@ -44,3 +47,4 @@ def params_from_jax(tree: Dict, device: DeviceLike = None) -> Dict:
 llama_params_from_jax = params_from_jax
 gpt2_params_from_jax = params_from_jax
 moe_params_from_jax = params_from_jax
+rllib_params_from_jax = params_from_jax

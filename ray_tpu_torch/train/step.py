@@ -48,17 +48,21 @@ def data_sharding(mesh, rules: Optional[dict] = None) -> tuple:
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The leaves of a nested dict (tensors, or a spec tree's tuples), in
-    insertion order."""
+    """The leaves of nested dicts and lists (tensors, or a spec tree's
+    tuples), in insertion order."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a nested dict."""
+    """``fn`` applied to every tensor of nested dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -138,10 +142,26 @@ class ClippedAdamW:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
         u = torch._foreach_div(m_hat, denom)
-        torch._foreach_add_(u, p, alpha=self.weight_decay)
+        if self.weight_decay:
+            torch._foreach_add_(u, p, alpha=self.weight_decay)
         torch._foreach_add_(p, u, alpha=-self.schedule(state["count"]))
         state["count"] = count
         return norm
+
+
+@dataclass(frozen=True)
+class ClippedAdam(ClippedAdamW):
+    """``optax.chain(clip_by_global_norm(grad_clip), adam(learning_rate))``:
+    ``ClippedAdamW``'s update at a constant learning rate, with adam's b2
+    and no weight decay.  ``grad_clip=math.inf`` never clips, which is
+    ``optax.adam`` alone."""
+
+    weight_decay: float = 0.0
+    b2: float = 0.999
+    grad_clip: float = math.inf
+
+    def schedule(self, count: int) -> float:
+        return self.learning_rate
 
 
 def default_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
