@@ -94,7 +94,16 @@ Phases, each fatal on failure:
      (device-busy ms, idle share, launches, top device operations);
      (c) APPO, IMPALA, DQN, SAC and multi-agent PPO at their JAX tests'
      configurations and gates, each with its best return, env steps/s
-     and update ms p50.
+     and update ms p50; (d) offline RL at the JAX tests' configurations
+     and gates: MARWIL (beta 1 and 0) and CQL from expert episodes of
+     ``NumpyCartPole``, BC and BC-MARWIL over a numpy ``iter_batches``
+     source, the evaluation rollouts' forward on the CPU; (e) DreamerV3
+     at ``tests/test_dreamerv3.py``'s learning configuration and gate on
+     ``OneHotBanditEnv`` (iterations, updates, update ms p50, the phase's
+     seconds; the runner's state and forward on the CPU) and one profiled
+     ``_update``.  (a) also holds ``_bc_update`` (beta 0 and 3),
+     ``_marwil_update``, ``_cql_update`` and DreamerV3's ``_update``
+     (the same Gumbel draws injected on both devices) to the CPU.
 The last three lines are the kernels' JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no result,
@@ -2852,7 +2861,226 @@ def rl_update_cases(runner_cls, cartpole, target_match):
                 "stats": list(stats.values())}, {"params": s}
 
     cases["multi_agent_update"] = (ma_case, ma_frag)
+    cases.update(offline_update_cases(cartpole, init, fresh, on))
+    cases["dreamer_update"] = dreamer_update_case()
     return cases
+
+
+# --------------------------------------------------------------------------
+# Offline RL and DreamerV3 (phase 11 (d), (e)): the expert of
+# tests/test_sac_marwil.py, a numpy ``iter_batches`` source for BC, and the
+# DreamerV3 configuration of tests/test_dreamerv3.py's learning test.
+
+
+def angle_policy(obs) -> int:
+    """tests/test_sac_marwil.py's scripted CartPole expert: push toward the
+    pole's fall direction."""
+    angle, ang_vel = obs[2], obs[3]
+    return 1 if angle + 0.5 * ang_vel > 0 else 0
+
+
+class NumpyBatches:
+    """An offline source for BC: ``iter_batches`` over numpy columns in
+    order, the last batch partial, as a dataset's."""
+
+    def __init__(self, columns):
+        self.columns = columns
+
+    def iter_batches(self, batch_size, batch_format="numpy"):
+        n = len(next(iter(self.columns.values())))
+        for i in range(0, n, batch_size):
+            yield {k: v[i:i + batch_size] for k, v in self.columns.items()}
+
+
+def bc_columns(marwil: bool):
+    """tests/test_data_extras.py's rows: BC's expert (action 1 iff obs[0] >
+    0), or MARWIL's mixed data (random actions, return = action)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    obs = rng.normal(size=(2000, 4)).astype(np.float32)
+    if not marwil:
+        return {"obs": obs, "actions": (obs[:, 0] > 0).astype(np.int64)}
+    actions = rng.integers(0, 2, size=2000)
+    return {"obs": obs, "actions": actions,
+            "returns": actions.astype(np.float64)}
+
+
+def dreamer_config(env):
+    """tests/test_dreamerv3.py's learning configuration (deter 128, hidden
+    128, B 8 x T 16, horizon 6, train ratio 48)."""
+    from ray_tpu_torch.rllib.dreamerv3 import DreamerV3Config
+
+    return DreamerV3Config(
+        env=env, num_env_runners=1, rollout_fragment_length=68,
+        batch_size=8, batch_length=16, train_ratio=48, deter=128,
+        hidden=128, model_lr=3e-3, horizon=6, gamma=0.95,
+        entropy_scale=0.03, seed=0)
+
+
+def offline_update_cases(cartpole, init, fresh, on):
+    """``rl_update_cases``' offline learners: ``_bc_update`` at beta 0 and
+    3 on test_data_extras' rows, ``_marwil_update`` and ``_cql_update`` on
+    a minibatch of their learners' transitions from expert episodes."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import bc, cql, marwil
+
+    params = init(4, 2, 21)
+    cases = {}
+
+    def bc_case(beta):
+        cfg = bc.MARWILConfig(beta=beta) if beta else bc.BCConfig()
+
+        def run(cols, dev):
+            p, s = fresh(params, dev)
+            t = {k: torch.from_numpy(v[:256]).to(dev)
+                 for k, v in cols.items()}
+            p, s, loss = bc._bc_update(
+                p, s, t["obs"], t["actions"], t["returns"], lr=cfg.lr,
+                grad_clip=cfg.grad_clip, beta=beta, vf_coeff=cfg.vf_coeff)
+            return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                    "loss": [loss]}, {"params": s}
+        return run
+
+    for beta in (0.0, 3.0):
+        cols = bc_columns(marwil=bool(beta))
+        cols["returns"] = cols.get(
+            "returns", np.zeros(2000)).astype(np.float32)
+        cases[f"bc_update_beta{beta:g}"] = (bc_case(beta), cols)
+
+    episodes = marwil.collect_episodes(cartpole, angle_policy, 6, seed=3,
+                                       max_steps=200)
+    idx = np.random.default_rng(0).integers(0, sum(
+        len(e["rewards"]) for e in episodes), 256)
+    mcfg = marwil.MARWILConfig(env=cartpole, episodes=episodes)
+    mdata = marwil.MARWIL(mcfg, "cpu")._data
+
+    def marwil_case(batch, dev):
+        p, s = fresh(params, dev)
+        p, s, ws, *losses = marwil._marwil_update(
+            p, s, torch.tensor(1.0, device=dev), on(batch, dev),
+            beta=mcfg.beta, vf_coeff=mcfg.vf_coeff, lr=mcfg.lr,
+            grad_clip=mcfg.grad_clip, max_weight=mcfg.max_weight)
+        return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                "ws_and_losses": [ws, *losses]}, {"params": s}
+
+    cases["marwil_update"] = (marwil_case,
+                              {k: v[idx] for k, v in mdata.items()})
+
+    ccfg = cql.CQLConfig(env=cartpole, episodes=episodes)
+    cdata = cql.CQL(ccfg, "cpu")._data
+    target = init(4, 2, 22)
+
+    def cql_case(batch, dev):
+        p, s = fresh(params, dev)
+        p, s, *losses = cql._cql_update(
+            p, on(target, dev), s, on(batch, dev), gamma=ccfg.gamma,
+            lr=ccfg.lr, grad_clip=ccfg.grad_clip, cql_alpha=ccfg.cql_alpha)
+        return {"params": p, "mu": s["mu"], "nu": s["nu"],
+                "losses": losses}, {"params": s}
+
+    cases["cql_update"] = (cql_case, {k: v[idx] for k, v in cdata.items()})
+    return cases
+
+
+class ReplayDraws:
+    """A Gumbel source handing out recorded CPU draws in order, each moved
+    to ``device``; records the smallest top-two gap of the scores each
+    draw decides (through ``dreamerv3.categorical``, wrapped while the
+    source is in use)."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device, self.gaps = list(draws), device, []
+
+    def __call__(self, shape):
+        draw = self.draws.pop(0)
+        assert tuple(draw.shape) == tuple(shape), (draw.shape, shape)
+        return draw.to(self.device)
+
+    def __enter__(self):
+        import torch
+
+        from ray_tpu_torch.rllib import dreamerv3
+
+        self._real = real = dreamerv3.categorical
+
+        def recording(logits, gumbel):
+            g = gumbel(tuple(logits.shape))
+            top2 = torch.topk((g + logits).detach(), 2, dim=-1).values
+            self.gaps.append(top2[..., 0] - top2[..., 1])
+            return real(logits, lambda shape: g)
+
+        dreamerv3.categorical = recording
+        return self
+
+    def __exit__(self, *exc):
+        from ray_tpu_torch.rllib import dreamerv3
+
+        dreamerv3.categorical = self._real
+
+    def min_gap(self) -> float:
+        return min(float(g.min()) for g in self.gaps)
+
+
+def dreamer_update_case():
+    """``rl_update_cases``' DreamerV3 update at the learning test's
+    configuration: a batch replayed from a runner's fragments on
+    OneHotBanditEnv, the same Gumbel draws injected on both devices."""
+    import torch
+
+    from ray_tpu_torch.rllib import dreamerv3, module
+    from ray_tpu_torch.rllib.examples import OneHotBanditEnv
+
+    cfg = dreamer_config(OneHotBanditEnv)
+    params = dreamerv3.init_params(cfg, 4, 4, torch.Generator()
+                                   .manual_seed(31), "cpu")
+    runner = dreamerv3.DreamerEnvRunner(cfg, seed=0)
+    buf = dreamerv3.SequenceReplay(cfg.buffer_size_steps, seed=0)
+    for _ in range(2):
+        buf.add(runner.sample(module.host_copy(params),
+                              cfg.rollout_fragment_length))
+    batch = buf.sample(cfg.batch_size, cfg.batch_length)
+    B, T, V, C = (cfg.batch_size, cfg.batch_length, cfg.stoch_vars,
+                  cfg.stoch_classes)
+    shapes = [(B, V, C)] * T + [(B * T, 4), (B * T, V, C)] * cfg.horizon
+    gumbel = dreamerv3.GumbelDraws(torch.Generator().manual_seed(32))
+    draws = [gumbel(s) for s in shapes]
+
+    def run(inputs, dev):
+        batch, draws = inputs
+        p = module.tree_to(params, dev, copy=True)
+        txs = dreamerv3._optimizers(cfg)
+        opts = {"model": txs["model"].init(p),
+                "actor": txs["actor"].init(p["actor"]),
+                "critic": txs["critic"].init(p["critic"])}
+        target = module.tree_to(p["critic"], dev, copy=True)
+        with ReplayDraws(draws, dev) as replay:
+            p, target, opts, retnorm, m = dreamerv3._update(
+                cfg, p, target, opts, torch.tensor(1.0, device=dev),
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                replay)
+        assert not replay.draws
+        run.min_gap = min(replay.min_gap(), getattr(run, "min_gap",
+                                                    math.inf))
+        heads = ("actor", "critic")
+        model = {k: v for k, v in p.items() if k not in heads}
+
+        def wm(tree):
+            return {k: v for k, v in tree.items() if k not in heads}
+
+        trees = {"world_model": model, "actor": p["actor"],
+                 "critic": p["critic"], "critic_target": target,
+                 "retnorm_and_metrics": [retnorm, *m.values()]}
+        adam = {"world_model": {"count": opts["model"]["count"],
+                                "nu": wm(opts["model"]["nu"])},
+                "actor": opts["actor"], "critic": opts["critic"]}
+        for name, s in opts.items():
+            trees[f"{name}_mu"], trees[f"{name}_nu"] = s["mu"], s["nu"]
+        return trees, adam
+
+    return run, (batch, draws)
 
 
 def rl_update_agreement(report, device):
@@ -2876,10 +3104,18 @@ def rl_update_agreement(report, device):
         rows[name] = {"max_abs_err": worst, "ill_conditioned_err": soft,
                       "ill_conditioned_share": share,
                       "by_output": {k: e[0] for k, e in errs.items()}}
+        # DreamerV3's draws: the smallest top-two score gap of any argmax
+        # over its injected Gumbel noise, far above the errors, or a
+        # flipped draw could explain a disagreement
+        gap = getattr(fn, "min_gap", None)
+        if gap is not None:
+            rows[name]["min_top2_gap"] = gap
         print(f"rllib {name} on {device} against the CPU: max abs err "
               f"{worst:.3e} (tol {RL_UPDATE_TOL:.0e}); near-eps Adam "
               f"entries {share:.4f} of them, err {soft:.3e} (tol "
-              f"{RL_ADAM_TOL:.0e})", flush=True)
+              f"{RL_ADAM_TOL:.0e})"
+              + ("" if gap is None else f"; smallest top-two gap of a "
+                 f"draw {gap:.3e}"), flush=True)
         if not (worst <= RL_UPDATE_TOL and soft <= RL_ADAM_TOL):
             bad.append(name)
     report["rllib"]["update_agreement"] = rows
@@ -3101,12 +3337,269 @@ def run_rllib(report):
         best >= 24.0 and set(result["policies"]) == {"p_a0", "p_a1"}
         and min(result["per_agent_return_mean"].values()) >= 9.0, row)
 
+    rl_offline(report, gates)
+    rl_dreamer(report, gates)
+
     report["rllib"]["algorithms"] = {k: row for k, (_, row) in gates.items()}
     report["rllib"]["phase_s"] = time.monotonic() - t_phase
     print(f"rllib phase: {report['rllib']['phase_s']:.1f} s", flush=True)
     failed = [k for k, (ok, _) in gates.items() if not ok]
     if failed:
         raise SystemExit(f"RL learning gates failed: {failed}")
+
+
+def rl_offline(report, gates):
+    """Phase 11 (d): MARWIL (beta 1 and 0) and CQL from expert episodes
+    of NumpyCartPole, and BC and BC-MARWIL over a numpy ``iter_batches``
+    source, at the JAX tests' configurations and gates
+    (tests/test_sac_marwil.py, tests/test_data_extras.py:51-96); the
+    learners on the card, the evaluation rollouts' forward on the CPU."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import bc, cql, marwil, module
+    from ray_tpu_torch.train.step import tree_leaves
+
+    t_phase = time.perf_counter()
+    eval_devices = set()
+    greedy = module.greedy_action
+
+    def recorded(params, obs):
+        eval_devices.update({obs.device.type,
+                             *(t.device.type for t in tree_leaves(params))})
+        return greedy(params, obs)
+
+    def learn(algo, iters, per_iter):
+        """(the results, a row of timings and the learner's devices) of
+        ``iters`` iterations of ``per_iter`` updates each."""
+        devices = {t.device.type for t in tree_leaves(algo.params)}
+        results, ms = [], []
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            results.append(algo.train())
+            ms.append(results[-1]["time_this_iter_s"] * 1e3 / per_iter)
+        ms.sort()
+        row = {"iterations": iters, "updates": iters * per_iter,
+               "update_ms_p50": ms[len(ms) // 2],
+               "train_s": time.perf_counter() - t0,
+               "learner_devices": sorted(devices)}
+        return results, row
+
+    def evaluate(algo, n):
+        module.greedy_action = recorded
+        try:
+            return algo.evaluate(n_episodes=n)
+        finally:
+            module.greedy_action = greedy
+
+    def show(name, row, gate):
+        print(f"rllib {name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()) + f"; gate {gate}", flush=True)
+
+    for name, n_eps, seed, beta, iters, n_eval, floor in (
+            ("marwil", 30, 7, 1.0, 12, 5, 80.0),
+            ("marwil_beta0", 20, 11, 0.0, 8, 3, 60.0)):
+        eps = marwil.collect_episodes(NumpyCartPole, angle_policy, n_eps,
+                                      seed=seed, max_steps=300)
+        behavior = float(np.mean([e["rewards"].sum() for e in eps]))
+        algo = marwil.MARWILConfig(env=NumpyCartPole, episodes=eps,
+                                   beta=beta, seed=0,
+                                   num_updates_per_iter=64).build()
+        results, row = learn(algo, iters, 64)
+        row.update(behavior_return=behavior,
+                   loss_last=results[-1]["loss"],
+                   eval_return=evaluate(algo, n_eval))
+        gate = f"eval >= {floor:g} over {n_eval} episodes"
+        show(name, row, gate)
+        gates[name] = (row["eval_return"] >= floor
+                       and (beta == 0.0 or behavior > 100), row)
+
+    eps = marwil.collect_episodes(NumpyCartPole, angle_policy, 30, seed=5,
+                                  max_steps=300)
+    algo = cql.CQLConfig(env=NumpyCartPole, episodes=eps, cql_alpha=1.0,
+                         seed=0, num_updates_per_iter=64).build()
+    results, row = learn(algo, 12, 64)
+    row.update(cql_gap_first=results[0]["cql_gap"],
+               cql_gap_last=results[-1]["cql_gap"],
+               eval_return=evaluate(algo, 4))
+    show("cql", row, "the gap falls, eval >= 80 over 4 episodes")
+    gates["cql"] = (row["cql_gap_last"] < row["cql_gap_first"]
+                    and row["eval_return"] >= 80.0, row)
+
+    cols = bc_columns(marwil=False)
+    algo = bc.BCConfig(obs_dim=4, n_actions=2,
+                       input_dataset=NumpyBatches(cols),
+                       train_batch_size=256, lr=3e-3, seed=0).build()
+    results, row = learn(algo, 5, 8)  # 8 batches an iteration
+    matches = sum(algo.compute_single_action(o) == int(o[0] > 0)
+                  for o in cols["obs"][:200])
+    row.update(loss_first=results[0]["loss"], loss_last=results[-1]["loss"],
+               expert_matches=matches)
+    show("bc", row, "the loss falls, >= 180 of 200 rows match the expert")
+    gates["bc"] = (row["loss_last"] < row["loss_first"] and matches >= 180,
+                   row)
+
+    cols = bc_columns(marwil=True)
+    algo = bc.MARWILConfig(obs_dim=4, n_actions=2,
+                           input_dataset=NumpyBatches(cols), beta=3.0,
+                           lr=3e-3, seed=0).build()
+    results, row = learn(algo, 5, 8)
+    row["share_of_action_1"] = float(np.mean(
+        [algo.compute_single_action(o) for o in cols["obs"][:200]]))
+    show("bc_marwil", row, "share of action 1 > 0.8")
+    gates["bc_marwil"] = (row["share_of_action_1"] > 0.8, row)
+    report["rllib"]["offline_phase_s"] = time.perf_counter() - t_phase
+    print(f"rllib offline phase: {report['rllib']['offline_phase_s']:.2f} "
+          f"s; evaluation rollouts' forward on {sorted(eval_devices)}",
+          flush=True)
+    if eval_devices != {"cpu"}:
+        raise SystemExit(f"offline evaluation forward on {eval_devices}: "
+                         "want the CPU (a host copy)")
+
+
+def rl_dreamer(report, gates):
+    """Phase 11 (e): DreamerV3 at tests/test_dreamerv3.py's learning
+    configuration and gate on OneHotBanditEnv (best return >= 10 within
+    80 iterations, the world-model loss falling), the learner on the card
+    and the runner's filtering state and forward on the CPU; then one
+    ``_update`` under the profiler on copies of the learner's state."""
+    import torch
+
+    from ray_tpu_torch.rllib import dreamerv3, module
+    from ray_tpu_torch.rllib.examples import OneHotBanditEnv
+    from ray_tpu_torch.train.step import tree_leaves
+
+    runner_devices = set()
+    sample = dreamerv3.DreamerEnvRunner.sample
+
+    def recorded(self, params, num_steps):
+        out = sample(self, params, num_steps)
+        runner_devices.update({self._h.device.type, self._z.device.type,
+                               *(t.device.type
+                                 for t in tree_leaves(params))})
+        return out
+
+    t0 = time.perf_counter()
+    algo = dreamer_config(OneHotBanditEnv).build()
+    dreamerv3.DreamerEnvRunner.sample = recorded
+    try:
+        learner_devices = {t.device.type for t in
+                           tree_leaves([algo.params, algo.critic_target,
+                                        algo.opts["model"]["mu"],
+                                        algo.retnorm])}
+        best, wm, per_update, iters = -math.inf, [], [], 0
+        for _ in range(80):
+            result = algo.train()
+            iters += 1
+            if result.get("wm_loss") is not None:
+                wm.append(result["wm_loss"])
+            if result["episode_return_mean"] is not None:
+                best = max(best, result["episode_return_mean"])
+            if result["updates_this_iter"]:
+                per_update.append(result["learn_time_ms"]
+                                  / result["updates_this_iter"])
+            if best >= 10.0:
+                break
+        learn_s = time.perf_counter() - t0
+        profiled = dreamer_profile(algo)
+    finally:
+        dreamerv3.DreamerEnvRunner.sample = sample
+        algo.stop()
+    per_update.sort()
+    row = {"iterations": iters, "updates": result["num_updates"],
+           "best_return": best, "wm_loss_first": wm[0] if wm else None,
+           "wm_loss_last": wm[-1] if wm else None,
+           "update_ms_p50": per_update[len(per_update) // 2],
+           "env_steps": result["env_steps_sampled"], "learn_s": learn_s,
+           "phase_s": time.perf_counter() - t0,
+           "learner_devices": sorted(learner_devices),
+           "runner_devices": sorted(runner_devices),
+           "profiled_update": profiled}
+    print(f"rllib dreamerv3 (tests/test_dreamerv3.py's configuration, "
+          f"OneHotBanditEnv): best return {best:.2f} in {iters} iterations "
+          f"(gate >= 10 within 80), {row['updates']} updates, update ms p50 "
+          f"{row['update_ms_p50']:.2f}, world-model loss "
+          f"{row['wm_loss_first']} -> {row['wm_loss_last']}, "
+          f"{row['env_steps']} env steps; learning {learn_s:.2f} s, phase "
+          f"{row['phase_s']:.2f} s; learner on {sorted(learner_devices)}, "
+          f"runner's state and forward on {sorted(runner_devices)}",
+          flush=True)
+    gates["dreamerv3"] = (best >= 10.0 and bool(wm) and wm[-1] < wm[0], row)
+    if learner_devices != {"cuda"} or runner_devices != {"cpu"}:
+        raise SystemExit(f"DreamerV3 learner on {learner_devices}, runner "
+                         f"on {runner_devices}: want cuda and cpu")
+
+
+def dispatched_ops(fn):
+    """(aten operations ``fn`` dispatches that are not views, {name:
+    count}): the operations that can launch a device kernel, counted
+    below autograd (backward included) on any device.  Allocations
+    (``empty``) and copies count too."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                counts[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return sum(counts.values()), dict(counts.most_common())
+
+
+def dreamer_profile(algo):
+    """One DreamerV3 ``_update`` at ``algo``'s configuration on copies of
+    its state and a batch from its buffer: host ms (median of 3, the card
+    synchronised), device-busy ms, idle share, device operations and the
+    top device operations (``device_events``: whole windows only)."""
+    import torch
+
+    from ray_tpu_torch.rllib import dreamerv3, module
+
+    cfg = algo.config
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             algo.buffer.sample(cfg.batch_size, cfg.batch_length).items()}
+    p, target, opts = (module.tree_to(t, "cuda", copy=True) for t in
+                       (algo.params, algo.critic_target, algo.opts))
+    gumbel = dreamerv3.GumbelDraws(torch.Generator("cuda").manual_seed(0))
+
+    def update():
+        return dreamerv3._update(cfg, p, target, opts, algo.retnorm.clone(),
+                                 batch, gumbel)[4]
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    update_ms = sorted(walls)[1]
+    n_ops, by_op = dispatched_ops(update)
+    rows = device_events(update)
+    busy = sum(r[1] for r in rows) if rows else None
+    launches = sum(r[2] for r in rows) if rows else None
+    idle = None if busy is None else 1 - busy / update_ms
+    print(f"rllib dreamerv3 _update (B {cfg.batch_size} x T "
+          f"{cfg.batch_length}, horizon {cfg.horizon}, deter {cfg.deter}): "
+          f"{update_ms:.3f} ms (median of 3, host clock), device busy "
+          f"{fmt_ms(busy)} ms, idle share "
+          + ("not measured" if idle is None else f"{idle:.4f}")
+          + f", {launches} device operations ({n_ops} aten operations "
+          f"dispatched, not views); top: " + "; ".join(
+              f"{k[:48]} {t:.3f} ms x{c}" for k, t, c in rows[:6]),
+          flush=True)
+    return {"update_ms": update_ms, "update_ms_readings": walls,
+            "device_busy_ms": busy, "idle_share": idle,
+            "device_operations": launches, "aten_operations": n_ops,
+            "aten_operations_by_name": by_op,
+            "top": [{"op": k[:90], "ms": t, "count": c}
+                    for k, t, c in rows[:12]]}
 
 
 def main() -> int:

@@ -1,16 +1,19 @@
-"""ray_tpu_torch.rllib: online reinforcement learning with the learners on
-the device.
+"""ray_tpu_torch.rllib: reinforcement learning with the learners on the
+device.
 
-Counterpart of ``ray_tpu/rllib``'s online algorithms (PPO, APPO, IMPALA,
-DQN, SAC, multi-agent PPO) and the env-runner path they sample through.
-The learners' tensors live on CUDA unless the caller passes
-``device="cpu"``; the env runners run on threads of their own
-(``_actors.py``, the stand-in for the runtime's actors) and compute their
-forward on the CPU from a CPU copy of the parameters.  Exports the online
-subset of the JAX package's ``rllib`` exports.
+Counterpart of ``ray_tpu/rllib``: the online algorithms (PPO, APPO,
+IMPALA, DQN, SAC, multi-agent PPO, DreamerV3) with the env-runner path
+they sample through, and the offline ones (BC, MARWIL, CQL) over episode
+lists or any ``iter_batches`` source.  The learners' tensors live on CUDA
+unless the caller passes ``device="cpu"``; the env runners run on threads
+of their own (``_actors.py``, the stand-in for the runtime's actors) and
+compute their forward on the CPU from a CPU copy of the parameters.
+Exports what the JAX package's ``rllib`` exports.
 """
 
+from ray_tpu_torch.rllib.bc import BC, BCConfig, MARWILConfig
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.dreamerv3 import DreamerV3, DreamerV3Config
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.impala import IMPALA, IMPALAConfig
 from ray_tpu_torch.rllib.module import (
@@ -26,8 +29,13 @@ from ray_tpu_torch.rllib.replay_buffers import (
 )
 
 __all__ = [
+    "BC",
+    "BCConfig",
+    "MARWILConfig",
     "DQN",
     "DQNConfig",
+    "DreamerV3",
+    "DreamerV3Config",
     "EnvRunner",
     "IMPALA",
     "IMPALAConfig",
