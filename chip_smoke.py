@@ -57,7 +57,19 @@ Phases, each fatal on failure:
      are timed and profiled; the profiled step shows 12 launches of each
      tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
      (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel;
-  9. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
+  9. the user's train loop (``run_torch_trainer``): ``TorchTrainer`` with
+     one NCCL GPU worker over ``from_numpy`` int32 token rows, read by
+     ``get_dataset_shard("train").iter_torch_batches`` onto the card
+     (pinned staging, a side stream, two batches in flight) into phase
+     8's GPT-2 124M step, 3 warm-up and 24 timed steps: the loss finite
+     and falling, the rows consumed equal to the source's (sha256), the
+     worker's first loss equal to this process's own step on the same
+     parameters and rows, 12 launches of each kernel a step in the
+     worker; its tokens/s against phase 8's, the ``next(batch)`` wait
+     p50 / p90, the share of copies done before the step on the batch
+     before them ended, and one batch's and a 64 MB block's H2D GB/s,
+     pinned and pageable;
+ 10. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
      and aux against the plain attention (on the tokens both forwards
@@ -66,7 +78,7 @@ Phases, each fatal on failure:
      launches a step, timed and profiled steps with peak memory beside
      its reckoning, and the first step on a world-size-1 NCCL mesh
      through the zigzag dispatch, equal to the step without the mesh;
- 10. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
+ 11. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
      batch 2 x seq 8192 (``run_llama3_trainer``), between two readings of
      the kernels at its attention shape (32 heads on 8 KV heads, head_dim
      128, seq 8192; the plain versions at 8 heads on 2): first
@@ -79,7 +91,7 @@ Phases, each fatal on failure:
      first step against the plain attention (one KV head's group at a
      time), the loss falling, 8 / 4 / 4 launches a step, timed and
      profiled steps with peak memory beside its reckoning;
- 11. online RLlib (``run_rllib``), the learners on the card and the env
+ 12. online RLlib (``run_rllib``), the learners on the card and the env
      runners' forward on the CPU: (a) each learner update on the card
      against the same update on the CPU, from the same parameters and a
      recorded batch (``ppo_update`` over PPOConfig's 4 epochs x 4
@@ -1918,6 +1930,192 @@ def run_trainer(report):
     return launches
 
 
+# The user's loop (``run_torch_trainer``): run_trainer's GPT-2 124M step fed
+# through TorchTrainer and the data iterator.  3 warm-up steps, then the
+# timed ones; every batch of the dataset is consumed once.
+TORCH_TRAINER_SEED = 17
+TORCH_TRAINER_WARMUP, TORCH_TRAINER_TIMED = 3, 24
+H2D_BLOCK_BYTES = 64 << 20  # the large copy beside one batch's
+
+
+def torch_trainer_loop(config):
+    """``run_torch_trainer``'s train function, in the trainer's worker: the
+    GPT-2 124M step over ``get_dataset_shard("train").iter_torch_batches``
+    onto the worker's GPU.  Reports the losses, each ``next(batch)``
+    wait, the timed steps' device time, whether each batch's copy had
+    completed when the step before it ended, a checksum of the token ids
+    consumed, and the worker's kernel launches over the loop (its counters
+    are its own process's)."""
+    import hashlib
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(train.get_context().get_device())
+    cfg = config["cfg"]
+    opt = train_step.default_optimizer(warmup_steps=1)
+    gen = torch.Generator(device=device).manual_seed(config["seed"])
+    state = train_step.create_train_state(gpt2, cfg, opt, gen, device=device)
+    step = train_step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    warmup, n_steps = config["warmup"], config["warmup"] + config["timed"]
+    batches = iter(train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch"], drop_last=True, device=device))
+    timed = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses, waits, copied, ends, kept = [], [], [], [], []
+    zero_launch_counts()
+    for i in range(n_steps):
+        if i == warmup:
+            torch.cuda.synchronize(device)
+            timed[0].record()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        waits.append((time.perf_counter() - t0) * 1e3)
+        kept.append(batch["tokens"])
+        copied.append(batch.copied)
+        state, m = step(state, batch["tokens"].long())
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        losses.append(m["loss"])
+    timed[1].record()
+    torch.cuda.synchronize(device)
+    launches = launch_counts()
+    exhausted = next(batches, None) is None
+    rows = torch.cat(kept).cpu().numpy()
+    # batch N + 1's copy against the end of the step on batch N (device
+    # clocks): at or before it, the copy hid under the step
+    hidden = [ends[n].elapsed_time(copied[n + 1]) <= 0
+              for n in range(warmup, n_steps - 1)]
+    step_ms = timed[0].elapsed_time(timed[1]) / config["timed"]
+    train.report({
+        "losses": [float(x) for x in losses], "wait_ms": waits,
+        "step_ms": step_ms,
+        "tokens_per_s": config["batch"] * (rows.shape[1] - 1)
+        / (step_ms / 1e3),
+        "hidden_share": sum(hidden) / len(hidden), "hidden": hidden,
+        "rows": rows.shape[0], "exhausted": exhausted,
+        "rows_sha256": hashlib.sha256(rows.tobytes()).hexdigest(),
+        "launches": launches, "device": torch.cuda.get_device_name(device)})
+
+
+def h2d_gbps(nbytes: int, pinned: bool, iters: int) -> float:
+    """Host-to-device GB/s of one ``nbytes`` copy from pinned or pageable
+    host memory (CUDA events around ``iters`` copies)."""
+    import torch
+
+    src = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pinned)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=pinned), iters)
+    return nbytes / (ms / 1e3) / 1e9
+
+
+def run_torch_trainer(report):
+    """The user's loop on the card: ``TorchTrainer`` at one GPU worker
+    (NCCL at world size 1) over ``from_numpy`` token rows, read through
+    ``iter_torch_batches`` onto the card into ``run_trainer``'s GPT-2 124M
+    step (``torch_trainer_loop``).  Fails unless the loss is finite and
+    falls, the rows consumed are the source's in order, the worker's first
+    loss equals this process's own step on the same parameters and first
+    rows within ``STEP_LOSS_TOL``, and every kernel launched 12 times a
+    step in the worker.  Also reads one batch's and a 64 MB block's H2D
+    GB/s, pinned and pageable.  Returns the worker's launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+
+    cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)  # run_trainer's
+    n_steps = TORCH_TRAINER_WARMUP + TORCH_TRAINER_TIMED
+    tokens = np.random.default_rng(TORCH_TRAINER_SEED).integers(
+        0, cfg.vocab_size, (n_steps * BATCH, SEQ + 1)).astype(np.int32)
+    config = {"cfg": cfg, "seed": TORCH_TRAINER_SEED, "batch": BATCH,
+              "warmup": TORCH_TRAINER_WARMUP, "timed": TORCH_TRAINER_TIMED}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    storage = tempfile.mkdtemp(dir=OUT_DIR)
+    t0 = time.monotonic()
+    try:
+        result = train.TorchTrainer(
+            torch_trainer_loop, train_loop_config=config,
+            torch_config=train.TorchConfig(),
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name="torch_trainer",
+                                       storage_path=storage),
+            datasets={"train": data.from_numpy(tokens, column="tokens")},
+        ).fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    fit_s = time.monotonic() - t0
+    if result.error is not None:
+        raise SystemExit(f"the TorchTrainer loop failed: {result.error}")
+    m = result.metrics
+
+    # this process's own first step on the same parameters and rows
+    gen = torch.Generator(device="cuda").manual_seed(TORCH_TRAINER_SEED)
+    opt = train_step.default_optimizer(warmup_steps=1)
+    state = train_step.create_train_state(gpt2, cfg, opt, gen, device="cuda")
+    step = train_step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    _, first = step(state, torch.from_numpy(tokens[:BATCH]).cuda().long())
+    own_loss = first["loss"].item()
+    del state, step, first
+    torch.cuda.empty_cache()
+
+    batch_bytes = BATCH * (SEQ + 1) * tokens.itemsize
+    h2d = {f"{label}_{kind}": h2d_gbps(nbytes, kind == "pinned", iters)
+           for label, nbytes, iters in (("batch", batch_bytes, 200),
+                                        ("block", H2D_BLOCK_BYTES, 20))
+           for kind in ("pinned", "pageable")}
+    waits = np.asarray(m["wait_ms"][TORCH_TRAINER_WARMUP:])
+    ratio = m["tokens_per_s"] / report["trainer"]["tokens_per_s"]
+    losses = m["losses"]
+    want = {k: cfg.n_layers * n_steps for k in m["launches"]}
+    source_sha = hashlib.sha256(tokens.tobytes()).hexdigest()
+    print(f"torch trainer (this card, {m['device']}): TorchTrainer, 1 NCCL "
+          f"worker, {n_steps} steps of GPT-2 124M over iter_torch_batches "
+          f"({fit_s:.1f} s for fit): loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}; this process's own first step "
+          f"{own_loss:.6f} (diff {abs(losses[0] - own_loss):.3e}, tol "
+          f"{STEP_LOSS_TOL:.0e}); {m['step_ms']:.3f} ms a timed step, "
+          f"{m['tokens_per_s']:.1f} tokens/s = {ratio:.4f} of run_trainer's "
+          f"{report['trainer']['tokens_per_s']:.1f}; next(batch) wait p50 "
+          f"{np.percentile(waits, 50):.4f} ms p90 "
+          f"{np.percentile(waits, 90):.4f} ms; copy done before the step "
+          f"on the batch before it ended: {m['hidden_share']:.3f} of "
+          f"{len(m['hidden'])}; rows {m['rows']} (sha256 "
+          f"{'equal to' if m['rows_sha256'] == source_sha else 'UNLIKE'} "
+          f"the source's); H2D GB/s one batch ({batch_bytes} B) pinned "
+          f"{h2d['batch_pinned']:.3f} pageable {h2d['batch_pageable']:.3f}, "
+          f"64 MB pinned {h2d['block_pinned']:.3f} pageable "
+          f"{h2d['block_pageable']:.3f}; worker launches {m['launches']}",
+          flush=True)
+    report["torch_trainer"] = dict(
+        m, fit_s=fit_s, own_first_loss=own_loss, tokens_per_s_ratio=ratio,
+        wait_ms_p50=float(np.percentile(waits, 50)),
+        wait_ms_p90=float(np.percentile(waits, 90)), h2d_gbps=h2d,
+        batch_bytes=batch_bytes, source_sha256=source_sha)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the loop's loss is not finite and falling: "
+                         f"{losses}")
+    if not (m["rows_sha256"] == source_sha and m["exhausted"]
+            and m["rows"] == len(tokens)):
+        raise SystemExit("the rows the loop consumed are not the source's")
+    if abs(losses[0] - own_loss) > STEP_LOSS_TOL:
+        raise SystemExit("the worker's first loss disagrees with this "
+                         "process's step on the same parameters and rows")
+    if m["launches"] != want:
+        raise SystemExit(f"worker launches {m['launches']}, want {want}")
+    return m["launches"]
+
+
 # Mixtral 8x7B's widths (MoEConfig.mixtral_8x7b()) cut to one layer; one
 # sequence of 4096 tokens.  State costs 16 B a parameter (the f32 weight,
 # its gradient, Adam's two moments) and the update three more f32
@@ -3640,6 +3838,7 @@ def main() -> int:
     frontend_launches = run_frontends(report)
     serve_launches = run_serve_bench(report)
     trainer_launches = run_trainer(report)
+    torch_trainer_launches = run_torch_trainer(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
     mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
@@ -3660,6 +3859,7 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         row = first[name]
         by_path = {"trainer": trainer_launches[name],
+                   "torch_trainer": torch_trainer_launches[name],
                    "moe_trainer": moe_launches[name],
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":

@@ -10,6 +10,16 @@ are used, as in JAX.  Attention goes through ``ops.attention.ATTENTION``:
 "flash" runs the Hopper kernels forward and backward on CUDA tensors and
 their plain versions on CPU tensors.  ``param_logical_specs`` names each
 parameter's axes for ``parallel.sharding``.
+
+With ``shards`` (``parallel.sharding.LocalShards``, which the sharded train
+step builds) each leaf is the rank's local block.  The MLP stays split over
+tp (``LOCAL_AXES``): column-parallel ``w_in`` / ``b_in`` into the
+row-parallel ``w_out``, whose partial output is summed over the group
+before ``b_out`` is added once.  Every other split dim is all-gathered
+where it is used.  That includes the heads: the fused ``wqkv`` is one
+``(d, 3d)`` leaf, and a tp rank's block of its columns is not a whole set
+of heads.  The tied ``wte`` is gathered once and serves as both the
+embedding and the head, so its gradient flows back through one gather.
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
-from ray_tpu_torch.models.llama import layer_params
+from ray_tpu_torch.models.llama import _whole, layer_params, layer_specs
 from ray_tpu_torch.models.losses import chunked_softmax_xent, head_logits
 from ray_tpu_torch.ops.attention import ATTENTION
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import mesh_axis_size
 from ray_tpu_torch.parallel.sharding import logical_spec as L
 
 
@@ -57,6 +69,10 @@ class GPT2Config:
     def tiny(vocab_size: int = 512) -> "GPT2Config":
         return GPT2Config(vocab_size=vocab_size, d_model=64, n_layers=2,
                           n_heads=2, max_seq_len=128)
+
+
+# the logical axes a tensor-parallel forward keeps split over tp
+LOCAL_AXES = ("mlp",)
 
 
 def param_logical_specs(cfg: GPT2Config):
@@ -145,7 +161,12 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (out * g + b).to(x.dtype)
 
 
-def _layer(cfg: GPT2Config, x: torch.Tensor, p: Dict, attn) -> torch.Tensor:
+def _layer(cfg: GPT2Config, x: torch.Tensor, p: Dict, attn,
+           shards=None) -> torch.Tensor:
+    tp = None
+    if shards is not None:
+        p = shards.gather(p, _LAYER_SPECS)
+        tp = shards.group("mlp")
     b, s, d = x.shape
     dt = x.dtype
     h = layer_norm(x, p["ln1_g"], p["ln1_b"], cfg.norm_eps)
@@ -155,42 +176,71 @@ def _layer(cfg: GPT2Config, x: torch.Tensor, p: Dict, attn) -> torch.Tensor:
     out = attn(q, k, v, causal=True).reshape(b, s, d)
     x = x + out @ p["attn"]["wo"].to(dt) + p["attn"]["bo"].to(dt)
     h = layer_norm(x, p["ln2_g"], p["ln2_b"], cfg.norm_eps)
+    if tp is not None:
+        (h,) = collectives.replicate(tp, h)
     h = F.gelu(h @ p["mlp"]["w_in"].to(dt) + p["mlp"]["b_in"].to(dt),
                approximate="tanh")
-    return x + h @ p["mlp"]["w_out"].to(dt) + p["mlp"]["b_out"].to(dt)
+    out = h @ p["mlp"]["w_out"].to(dt)
+    if tp is not None:
+        out = collectives.sum_replicated(out, tp)
+    return x + out + p["mlp"]["b_out"].to(dt)
 
 
-def trunk(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
-          attn_impl: str = "flash") -> torch.Tensor:
-    """Embeddings -> final layer norm, without the LM head: (b, s, d).
-    With ``cfg.remat`` each layer runs under a non-reentrant checkpoint
-    while gradients are being recorded (``jax.checkpoint`` in JAX)."""
+_SPECS = param_logical_specs(GPT2Config())
+_LAYER_SPECS = layer_specs(_SPECS["layers"])
+
+
+def _trunk(params: Dict, wte: torch.Tensor, tokens: torch.Tensor,
+           cfg: GPT2Config, attn_impl: str, mesh, shards) -> torch.Tensor:
+    if mesh_axis_size(mesh, "sp") > 1:
+        raise ValueError("GPT-2 attends over the whole sequence; the mesh "
+                         "splits it over sp")
     attn = ATTENTION[attn_impl]
     s = tokens.shape[1]
-    x = (params["wte"][tokens] + params["wpe"][:s][None]).to(
-        torch_dtype(cfg.dtype))
+    wpe = _whole(params, "wpe", shards, _SPECS)
+    x = (wte[tokens] + wpe[:s][None]).to(torch_dtype(cfg.dtype))
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         if remat:
-            x = checkpoint(_layer, cfg, x, p, attn, use_reentrant=False)
+            x = checkpoint(_layer, cfg, x, p, attn, shards,
+                           use_reentrant=False)
         else:
-            x = _layer(cfg, x, p, attn)
+            x = _layer(cfg, x, p, attn, shards)
     return layer_norm(x, params["lnf_g"], params["lnf_b"], cfg.norm_eps)
 
 
+def trunk(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
+          attn_impl: str = "flash", mesh=None, rules: Optional[Dict] = None,
+          shards=None) -> torch.Tensor:
+    """Embeddings -> final layer norm, without the LM head: (b, s, d).
+    With ``cfg.remat`` each layer runs under a non-reentrant checkpoint
+    while gradients are being recorded (``jax.checkpoint`` in JAX).
+    ``shards``: the parameters are the rank's local blocks (module
+    docstring).  ``mesh`` and ``rules`` are what the sharded step passes
+    every model; the sequence is attended whole, so a mesh that splits it
+    over sp raises."""
+    wte = _whole(params, "wte", shards, _SPECS)
+    return _trunk(params, wte, tokens, cfg, attn_impl, mesh, shards)
+
+
 def apply(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
-          attn_impl: str = "flash") -> torch.Tensor:
+          attn_impl: str = "flash", mesh=None, rules: Optional[Dict] = None,
+          shards=None) -> torch.Tensor:
     """Forward pass: tokens (batch, seq) int -> f32 logits (batch, seq,
     vocab) through the head tied to ``wte``, with operands in
     ``cfg.dtype``."""
-    x = trunk(params, tokens, cfg, attn_impl)
-    return head_logits(x, params["wte"].t())
+    wte = _whole(params, "wte", shards, _SPECS)
+    x = _trunk(params, wte, tokens, cfg, attn_impl, mesh, shards)
+    return head_logits(x, wte.t())
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
-            attn_impl: str = "flash") -> torch.Tensor:
-    """Next-token cross-entropy of tokens (batch, seq + 1)."""
-    x = trunk(params, tokens[:, :-1], cfg, attn_impl)
-    return chunked_softmax_xent(x, params["wte"].t(), tokens[:, 1:],
+            attn_impl: str = "flash", mesh=None, rules: Optional[Dict] = None,
+            shards=None) -> torch.Tensor:
+    """Next-token cross-entropy of tokens (batch, seq + 1): the mean over
+    these tokens, which with a mesh are the rank's own."""
+    wte = _whole(params, "wte", shards, _SPECS)
+    x = _trunk(params, wte, tokens[:, :-1], cfg, attn_impl, mesh, shards)
+    return chunked_softmax_xent(x, wte.t(), tokens[:, 1:],
                                 chunk=cfg.loss_chunk)

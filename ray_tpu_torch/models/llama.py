@@ -268,18 +268,24 @@ def _layer(cfg: LlamaConfig, x, p, positions, attn, shards=None):
     return x + out
 
 
+def layer_specs(specs: Dict) -> Dict:
+    """A stacked layer's slice's logical specs: ``specs["layers"]``
+    without the leading "layers" dim."""
+    return {k: layer_specs(v) if isinstance(v, dict) else v[1:]
+            for k, v in specs.items()}
+
+
 _SPECS = param_logical_specs(LlamaConfig())
-# a stacked layer's slice: its specs without the leading "layers" dim
-_LAYER_SPECS = {k: {n: spec[1:] for n, spec in v.items()}
-                if isinstance(v, dict) else v[1:]
-                for k, v in _SPECS["layers"].items()}
+_LAYER_SPECS = layer_specs(_SPECS["layers"])
 
 
-def _whole(state: Dict, key: str, shards) -> torch.Tensor:
-    """A top-level leaf, all-gathered where ``shards`` says it is split."""
+def _whole(state: Dict, key: str, shards, specs: Dict = _SPECS
+           ) -> torch.Tensor:
+    """A top-level leaf, all-gathered where ``shards`` says it is split
+    (by ``specs``, the model's spec tree)."""
     if shards is None:
         return state[key]
-    return shards.gather(state[key], _SPECS[key])
+    return shards.gather(state[key], specs[key])
 
 
 def trunk(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,

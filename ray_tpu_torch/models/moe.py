@@ -13,12 +13,25 @@ attention runs through ``llama._attention``: with no mesh,
 
 Expert parallelism: with a mesh whose ``ep`` axis (the rules' "experts"
 entry) is larger than 1, each rank's expert leaves hold its E/ep experts,
-the local shard along their "experts" axis, and every other parameter is
-whole.  The tokens are the same on every rank of an ``ep`` group (the
-default rules shard batch over dcn/dp/fsdp, not ep), so each rank computes
-the full routing, runs its own experts on its slice of dispatch and
-combine, and the partial outputs are summed over the group: what XLA emits
-for the JAX package's sharding.
+the local shard along their "experts" axis.  The tokens are the same on
+every rank of an ``ep`` group (the default rules shard batch over
+dcn/dp/fsdp, not ep), so each rank computes the routing, runs its own
+experts on its slice of dispatch and combine, and the partial outputs are
+summed over the group: what XLA emits for the JAX package's sharding.
+
+With ``shards`` (``parallel.sharding.LocalShards``, which the sharded
+train step builds) each leaf is the rank's local block: attention runs
+through the Llama block with its heads split over tp, the experts stay
+split over ep (``LOCAL_AXES``), and every other split dim, the experts'
+MLP width included, is all-gathered where it is used.  The batch is then
+split over the data axes, and JAX's GSPMD routes the global token set:
+capacity, each token's place in its expert's buffer and the aux loss's
+``f`` and ``p`` are all reckoned over every token.  So the router logits
+are all-gathered over the data axes in JAX's ``(B, S)`` order, the global
+routing is computed on every rank, and each rank keeps its own tokens'
+rows of ``dispatch`` and ``combine``.  A capacity slot holds at most one
+token, so those rows pick exactly the rank's tokens' slots and no token
+exchange is needed.
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from ray_tpu_torch.models.llama import _attention, _attention_block, \
-    _positions, layer_params, rms_norm
+    _positions, _whole, layer_params, layer_specs, rms_norm
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
 from ray_tpu_torch.parallel.sharding import logical_spec as L
@@ -70,6 +83,11 @@ class MoEConfig:
         return MoEConfig(vocab_size=vocab_size, d_model=128, n_layers=2,
                          n_heads=4, n_kv_heads=2, d_ff=256, n_experts=4,
                          experts_per_token=2, max_seq_len=256, remat=False)
+
+
+# the logical axes a sharded forward keeps split: the attention's heads over
+# tp, the experts over ep
+LOCAL_AXES = ("heads", "kv_heads", "experts")
 
 
 def param_logical_specs(cfg: MoEConfig):
@@ -157,10 +175,15 @@ def route(cfg: MoEConfig, xf: torch.Tensor, router_w: torch.Tensor
     each choice fits its expert's capacity, ``dispatch`` (N, E, C) 0/1 and
     ``combine`` (N, E, C) the renormalised top-k weights at the dispatched
     slots, both f32."""
-    n = xf.shape[0]
+    return route_logits(cfg, xf.float() @ router_w.float())
+
+
+def route_logits(cfg: MoEConfig, logits: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """``route`` from the f32 router logits (N, E)."""
+    n = logits.shape[0]
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = expert_capacity(cfg, n)
-    logits = xf.float() @ router_w.float()  # (N, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_idx = torch.topk(probs, k, dim=-1)  # (N, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)  # Mixtral renorm
@@ -199,20 +222,57 @@ def _ep_axis(mesh, rules: Optional[Dict]) -> Optional[str]:
     return axis if mesh_axis_size(mesh, axis) > 1 else None
 
 
+def _global_logits(shards, logits: torch.Tensor):
+    """The router logits of the whole batch from every rank's (b, s, E)
+    block, flattened in JAX's (B, S) order, and the rows of the rank's own
+    tokens in it; ``(logits flattened, None)`` where the batch is whole.
+    Each sequence's blocks are gathered over the seq axis, then the batch
+    blocks over the batch axes, minor axis first (``LocalShards.gather``'s
+    order), so the blocks land major to minor."""
+    b, s, e = logits.shape
+    batch_axes, seq_axes = shards.data_axes()
+    if not batch_axes and not seq_axes:
+        return logits.reshape(b * s, e), None
+    mesh = shards.mesh
+    row0, col0 = 0, 0
+    for axis in reversed(seq_axes):
+        col0 += mesh.get_local_rank(axis) * logits.shape[1]
+        logits = collectives.all_gather(logits, mesh.get_group(axis), 1)
+    for axis in reversed(batch_axes):
+        row0 += mesh.get_local_rank(axis) * logits.shape[0]
+        logits = collectives.all_gather(logits, mesh.get_group(axis), 0)
+    big_b, big_s = logits.shape[:2]
+    rows = torch.arange(row0, row0 + b, device=logits.device)[:, None] \
+        * big_s + torch.arange(col0, col0 + s, device=logits.device)
+    return logits.reshape(big_b * big_s, e), rows.reshape(-1)
+
+
 def moe_mlp(cfg: MoEConfig, x: torch.Tensor, router_w: torch.Tensor,
-            experts: Dict, mesh=None, rules: Optional[Dict] = None):
+            experts: Dict, mesh=None, rules: Optional[Dict] = None,
+            shards=None):
     """Top-k routed expert MLP.  x: (B, S, D) -> (out (B, S, D), aux_loss).
 
     Tokens over an expert's capacity are dropped (their residual stream
     passes through unchanged), as in GShard/Switch.  The router is f32;
     dispatch and combine are cast to x's dtype before the expert products.
     With expert parallelism (module docstring) ``experts`` holds the rank's
-    experts and the output is the sum of every rank's partial one."""
+    experts and the output is the sum of every rank's partial one; with
+    ``shards`` x is the rank's block of the batch, routed with the whole
+    batch (module docstring)."""
     b, s, d = x.shape
-    n, e = b * s, cfg.n_experts
-    xf = x.reshape(n, d)
-    r = route(cfg, xf, router_w)
+    e = cfg.n_experts
+    xf = x.reshape(b * s, d)
+    logits = xf.float() @ router_w.float()
+    rows = None
+    if shards is not None:
+        # the gather's backward sums every rank's cotangents: each rank's
+        # copy of the aux term feeds the router gradient, which the step's
+        # 1 / n_data scale makes the mean
+        logits, rows = _global_logits(shards, logits.reshape(b, s, e))
+    r = route_logits(cfg, logits)
     dispatch, combine = r["dispatch"], r["combine"]
+    if rows is not None:
+        dispatch, combine = dispatch[rows], combine[rows]
 
     e_local = experts["w_gate"].shape[0]
     axis = _ep_axis(mesh, rules)
@@ -250,21 +310,33 @@ def moe_mlp(cfg: MoEConfig, x: torch.Tensor, router_w: torch.Tensor,
     return out.reshape(b, s, d), aux
 
 
-def _layer(cfg: MoEConfig, x, p, positions, attn, mesh, rules):
-    x = _attention_block(cfg, x, p, positions, attn)
+def _layer(cfg: MoEConfig, x, p, positions, attn, mesh, rules, shards=None):
+    tp = None
+    if shards is not None:
+        p = shards.gather(p, _LAYER_SPECS)
+        tp = shards.group("heads")
+    x = _attention_block(cfg, x, p, positions, attn, tp)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    moe_out, aux = moe_mlp(cfg, h, p["router"], p["experts"], mesh, rules)
+    moe_out, aux = moe_mlp(cfg, h, p["router"], p["experts"], mesh, rules,
+                           shards)
     return x + moe_out, aux
+
+
+_SPECS = param_logical_specs(MoEConfig())
+_LAYER_SPECS = layer_specs(_SPECS["layers"])
 
 
 def apply(params: Dict, tokens: torch.Tensor, cfg: MoEConfig,
           attn_impl: str = "flash", mesh=None, rules: Optional[Dict] = None,
-          return_aux: bool = False):
+          return_aux: bool = False, shards=None):
     """Forward: tokens (B, S) -> f32 logits (B, S, vocab) [, aux_loss
     averaged over the layers].  The LM head is an f32 product of the f32
     activations, as in JAX.  With ``cfg.remat`` each layer runs under a
-    non-reentrant checkpoint while gradients are being recorded."""
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    non-reentrant checkpoint while gradients are being recorded.
+    ``shards``: the parameters are the rank's local blocks and the tokens
+    its block of the batch (module docstring)."""
+    embed = _whole(params, "embed", shards, _SPECS)
+    x = embed[tokens].to(torch_dtype(cfg.dtype))
     positions = _positions(tokens.shape[1], mesh, tokens.device)
     attn = _attention(attn_impl, mesh, rules)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -273,23 +345,25 @@ def apply(params: Dict, tokens: torch.Tensor, cfg: MoEConfig,
         p = layer_params(params["layers"], i)
         if remat:
             x, a = checkpoint(_layer, cfg, x, p, positions, attn, mesh,
-                              rules, use_reentrant=False)
+                              rules, shards, use_reentrant=False)
         else:
-            x, a = _layer(cfg, x, p, positions, attn, mesh, rules)
+            x, a = _layer(cfg, x, p, positions, attn, mesh, rules, shards)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x.float() @ params["lm_head"]
+    logits = x.float() @ _whole(params, "lm_head", shards, _SPECS)
     aux = aux / cfg.n_layers
     return (logits, aux) if return_aux else logits
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, cfg: MoEConfig,
             attn_impl: str = "flash", mesh=None,
-            rules: Optional[Dict] = None) -> torch.Tensor:
+            rules: Optional[Dict] = None, shards=None) -> torch.Tensor:
     """Next-token cross-entropy of tokens (B, S + 1) plus
-    ``aux_loss_weight`` times the load-balancing aux loss."""
+    ``aux_loss_weight`` times the load-balancing aux loss: the mean over
+    these tokens, which with ``shards`` are the rank's own, and the aux
+    loss of the whole batch."""
     logits, aux = apply(params, tokens[:, :-1], cfg, attn_impl, mesh=mesh,
-                        rules=rules, return_aux=True)
+                        rules=rules, return_aux=True, shards=shards)
     targets = tokens[:, 1:]
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None])[..., 0]

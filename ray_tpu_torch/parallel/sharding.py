@@ -208,6 +208,14 @@ class LocalShards:
         """Every mesh axis of size > 1 that splits a leaf of this spec."""
         return tuple(a for _, _, axes in self._split(logical) for a in axes)
 
+    def data_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """The mesh axes of size > 1 that split the batch and the
+        sequence (the rules' "batch" and "seq" entries), major to minor."""
+        return tuple(tuple(a for a in _axes(entry)
+                           if _axis_size(self.mesh, a) > 1)
+                     for entry in to_partition_spec(("batch", "seq"),
+                                                    self.rules))
+
     def group(self, name: str):
         """The process group of the mesh axis that splits logical axis
         ``name``, or None where it is whole."""

@@ -194,9 +194,8 @@ class CheckpointManager:
         if attr is None:
             return rec.index
         val = rec.metrics.get(attr)
-        if val is None:
-            return float("-inf") if self._config.checkpoint_score_order == "max" \
-                else float("inf")
+        if val is None:  # unscored ranks worst in either order
+            return float("-inf")
         return val if self._config.checkpoint_score_order == "max" else -val
 
     def _evict(self):

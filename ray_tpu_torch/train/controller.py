@@ -53,8 +53,12 @@ class TrainController:
         scaling_config: ScalingConfig,
         run_config: RunConfig,
         dataset_factory: Optional[Callable[[int], list]] = None,
+        group_options: Optional[dict] = None,
     ):
+        """``group_options``: the ``WorkerGroup``'s process-group options
+        (``backend``, ``timeout_s``)."""
         self._train_fn = train_fn
+        self._group_options = group_options or {}
         self._config = train_loop_config
         self._scaling = scaling_config
         self._run_config = run_config
@@ -98,7 +102,7 @@ class TrainController:
         n = self._scaling.num_workers
         shards = (self._dataset_factory(n)
                   if self._dataset_factory is not None else None)
-        group = WorkerGroup(self._scaling)
+        group = WorkerGroup(self._scaling, **self._group_options)
         try:
             group.start(self._name, self._experiment_dir, restore, shards,
                         self._next_report_index)

@@ -12,8 +12,12 @@ the same global batch, takes the rank's block (batch over the rules'
 the local parameter blocks (``parallel.sharding.LocalShards``: gathers
 before use, Megatron's pair on the model's ``LOCAL_AXES``), then averages
 loss and gradients over the data axes and takes the global norm over each
-leaf's shards.  Expert and pipeline axes above 1 raise
-``NotImplementedError``: the step does not reduce over them.
+leaf's shards.  The expert axis is not a data axis (the batch rule is
+``("dcn", "dp", "fsdp")``): the ranks of an ep group hold the same rows,
+the expert leaves stay split over it and the others are whole there, so
+no gradient is summed over ep.  No leaf and no batch rule names the
+pipeline axis, so, as in JAX's step, every rank of a pp group runs the
+whole step alike (``parallel.pipeline`` is its own entry point).
 
 ``default_optimizer`` is the port's own code, not ``torch.optim.AdamW``
 (which decays before the Adam step): it is the JAX package's
@@ -197,23 +201,11 @@ class _Sharded:
     """The collectives of a step on a mesh with an axis above 1."""
 
     def __init__(self, model, cfg, mesh, rules):
-        for axis in ("ep", "pp"):
-            if mesh_axis_size(mesh, axis) > 1:
-                raise NotImplementedError(
-                    f"the train step does not reduce over the {axis!r} axis "
-                    f"(size {mesh_axis_size(mesh, axis)}); it runs on "
-                    "meshes whose ep and pp axes are 1")
-        if not hasattr(model, "LOCAL_AXES"):
-            raise NotImplementedError(
-                f"{model.__name__} computes on whole parameters; its step "
-                "runs on a mesh only where every axis is 1")
         self.mesh = mesh
         self.shards = LocalShards(mesh, rules, model.LOCAL_AXES)
         for name in model.LOCAL_AXES:
             self.shards.group(name)  # one mesh axis per local dim
-        batch, seq = to_partition_spec(("batch", "seq"), rules)
-        self.batch_axes = self._live(batch)
-        self.seq_axes = self._live(seq)
+        self.batch_axes, self.seq_axes = self.shards.data_axes()
         if len(self.seq_axes) > 1:
             raise NotImplementedError("the sequence splits over one axis")
         self.data_axes = self.batch_axes + self.seq_axes

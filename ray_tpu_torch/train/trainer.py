@@ -30,6 +30,7 @@ class DataParallelTrainer:
         self._scaling_config = scaling_config or ScalingConfig()
         self._run_config = run_config or RunConfig()
         self._datasets = datasets or {}
+        self._group_options: dict = {}
 
     def _dataset_factory(self, num_shards: int) -> list:
         """Split each dataset into per-rank shards.
@@ -56,5 +57,6 @@ class DataParallelTrainer:
             self._scaling_config,
             self._run_config,
             dataset_factory=factory,
+            group_options=self._group_options,
         )
         return controller.run()

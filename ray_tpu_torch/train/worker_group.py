@@ -7,14 +7,18 @@ torch's idiom of one process per GPU: each ``TrainWorker`` is a process
 started with ``multiprocessing``'s spawn context, and the group's ranks
 form one process group (``init_process_group`` with an explicit
 ``tcp://127.0.0.1:<free port>`` address, the world size and the rank;
-NCCL on the GPUs, gloo on the CPU).  The train function and its config
-cross to the workers by pickling, so the function is a module-level one.
+NCCL on the GPUs, gloo on the CPU, unless the group is given another
+backend).  Each worker also sets the variables a torch program reads
+(``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``).  The train function and its config cross to the workers
+by pickling, so the function is a module-level one.
 """
 
 from __future__ import annotations
 
 import datetime
 import multiprocessing
+import os
 import queue
 import socket
 import time
@@ -38,8 +42,8 @@ def _free_port() -> int:
 
 
 def _worker_main(rank: int, local_rank: int, world_size: int, address: str,
-                 scaling: ScalingConfig, setup: dict, inbox, outbox,
-                 stop_event) -> None:
+                 scaling: ScalingConfig, backend: str, timeout_s: float,
+                 setup: dict, inbox, outbox, stop_event) -> None:
     """One worker process: join the group, run the train function it is
     sent, report its end, and leave the group when told to shut down."""
     import torch
@@ -50,10 +54,13 @@ def _worker_main(rank: int, local_rank: int, world_size: int, address: str,
     device = scaling.device(local_rank)
     if scaling.use_gpu:
         torch.cuda.set_device(local_rank)
+    host, port = address.removeprefix("tcp://").rsplit(":", 1)
+    os.environ.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(world_size), LOCAL_RANK=str(local_rank))
     dist.init_process_group(
-        scaling.backend, init_method=address, world_size=world_size,
-        rank=rank, timeout=datetime.timedelta(seconds=SETUP_TIMEOUT_S),
-        **({"device_id": torch.device(device)} if scaling.use_gpu else {}))
+        backend, init_method=address, world_size=world_size,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s),
+        **({"device_id": torch.device(device)} if backend == "nccl" else {}))
     ctx = train_context.TrainContext(
         rank=rank, local_rank=local_rank, world_size=world_size,
         outbox=outbox, stop_event=stop_event, device=device, **setup)
@@ -82,9 +89,13 @@ def _worker_main(rank: int, local_rank: int, world_size: int, address: str,
 class TrainWorker:
     """The controller's handle on one worker process."""
 
-    def __init__(self, rank: int, world_size: int, scaling: ScalingConfig):
+    def __init__(self, rank: int, world_size: int, scaling: ScalingConfig,
+                 backend: Optional[str] = None,
+                 timeout_s: float = SETUP_TIMEOUT_S):
         self.rank, self.world_size = rank, world_size
         self._scaling = scaling
+        self._backend = backend or scaling.backend
+        self._timeout_s = timeout_s
         self._ctx = multiprocessing.get_context("spawn")
         self._inbox = self._ctx.Queue()
         self._outbox = self._ctx.Queue()
@@ -99,8 +110,8 @@ class TrainWorker:
         self._proc = self._ctx.Process(
             target=_worker_main, daemon=True,
             args=(self.rank, self.rank, self.world_size, address,
-                  self._scaling, setup, self._inbox, self._outbox,
-                  self._stop))
+                  self._scaling, self._backend, self._timeout_s, setup,
+                  self._inbox, self._outbox, self._stop))
         self._proc.start()
 
     def run(self, fn: Callable, config: Optional[dict]) -> None:
@@ -151,10 +162,15 @@ class TrainWorker:
 
 
 class WorkerGroup:
-    """Creates/destroys the gang; fans calls out to all ranks."""
+    """Creates/destroys the gang; fans calls out to all ranks.  The
+    process group takes ``backend`` (default: the scaling config's) and
+    ``timeout_s`` for its collectives."""
 
-    def __init__(self, scaling_config: ScalingConfig):
+    def __init__(self, scaling_config: ScalingConfig,
+                 backend: Optional[str] = None,
+                 timeout_s: float = SETUP_TIMEOUT_S):
         self._config = scaling_config
+        self._backend, self._timeout_s = backend, timeout_s
         self._num_workers = scaling_config.num_workers
         self._workers: list[TrainWorker] = []
 
@@ -181,7 +197,8 @@ class WorkerGroup:
                 f"{n} workers need {n} GPUs; {torch.cuda.device_count()} "
                 "visible (ScalingConfig(use_gpu=False) runs on the CPU)")
         address = f"tcp://127.0.0.1:{_free_port()}"
-        self._workers = [TrainWorker(r, n, self._config) for r in range(n)]
+        self._workers = [TrainWorker(r, n, self._config, self._backend,
+                                     self._timeout_s) for r in range(n)]
         for rank, w in enumerate(self._workers):
             w.setup(address, {
                 "experiment_name": experiment_name,

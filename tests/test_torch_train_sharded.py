@@ -5,12 +5,13 @@ Three steps of the tiny Llama in f32 (``warmup_steps=1``, so the second and
 third updates move the parameters) from the same parameters and tokens, at
 the recipe's ``fsdp x tp`` structure, at ``dp x fsdp`` and at ``fsdp x sp``
 with ring attention: every rank's loss, grad norm and local block of every
-parameter against JAX's.  Meshes whose expert or pipeline axis is above 1
-raise ``NotImplementedError``.
+parameter against JAX's.
 
 One spawn runs every case; the children import torch and the port only and
 rendezvous through a ``FileStore`` under the test's temporary directory,
-with a timeout on every collective and on the join.
+with a timeout on every collective and on the join.  The spawn, the JAX
+side and the comparison are shared with ``test_torch_train_sharded_models.py``
+(GPT-2, the MoE, and the ep and pp axes), which runs its own spawn.
 """
 
 import dataclasses
@@ -39,18 +40,37 @@ LOSS_TOL, NORM_RTOL, PARAM_TOL = 1e-5, 1e-5, 1e-5
 # these meshes, one or two entries of a leaf.  They are held to ADAM_TOL,
 # a third of one step's learning rate, and must stay a small share.
 ILL_CONDITIONED, ADAM_TOL, ILL_SHARE = 1e-6, 1e-4, 0.01
-# name: (MeshConfig fields, the port's attn_impl, JAX's)
-CASES = {"fsdp2_tp2": (dict(fsdp=2, tp=2), "flash", "xla"),
-         "dp2_fsdp2": (dict(dp=2, fsdp=2), "flash", "xla"),
-         "fsdp2_sp2": (dict(fsdp=2, sp=2), "ring", "ring")}
-REFUSED = {"fsdp2_ep2": dict(fsdp=2, ep=2), "fsdp2_pp2": dict(fsdp=2, pp=2)}
 AXES = ("dcn", "pp", "dp", "fsdp", "ep", "sp", "tp")
 
 
-def _config():
-    from ray_tpu_torch.models import llama
+@dataclasses.dataclass(frozen=True)
+class Case:
+    """A model on a mesh: its MeshConfig fields, the port's attn_impl and
+    JAX's.  ``local_routing``: the MoE routes each rank's rows alone (a
+    negative control, held to the case without it)."""
 
-    return dataclasses.replace(llama.LlamaConfig.tiny(), dtype="float32")
+    model: str
+    mesh: dict
+    impl: str = "flash"
+    jax_impl: str = "xla"
+    local_routing: bool = False
+
+
+CASES = {"fsdp2_tp2": Case("llama", dict(fsdp=2, tp=2)),
+         "dp2_fsdp2": Case("llama", dict(dp=2, fsdp=2)),
+         "fsdp2_sp2": Case("llama", dict(fsdp=2, sp=2), "ring", "ring")}
+
+
+CONFIGS = {"llama": "LlamaConfig", "gpt2": "GPT2Config", "moe": "MoEConfig"}
+
+
+def _config(model: str):
+    """The port's tiny config of ``model`` in f32."""
+    import importlib
+
+    mod = importlib.import_module(f"ray_tpu_torch.models.{model}")
+    return dataclasses.replace(getattr(mod, CONFIGS[model]).tiny(),
+                               dtype="float32")
 
 
 def _optimizer(step_mod):
@@ -75,42 +95,60 @@ def _flatten(tree, prefix=""):
 # the ranks: torch and the port only
 
 
-def _rank_cases(rank):
-    from ray_tpu_torch.models import llama, moe
+def _run_case(name, case, tokens):
+    """Three steps of one case on this rank: losses, grad norms, the
+    rank's parameter blocks, and for the MoE the choices dropped by
+    capacity in the first step's forward."""
+    import importlib
+
+    from ray_tpu_torch.models import moe
     from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     from ray_tpu_torch.train import step
 
-    cfg = _config()
-    tokens = torch.from_numpy(_tokens())
+    model = importlib.import_module(f"ray_tpu_torch.models.{case.model}")
+    mesh = create_mesh(MeshConfig(**case.mesh), device_type="cpu")
+    opt = _optimizer(step)
+    state = step.create_train_state(
+        model, _config(case.model), opt, torch.Generator().manual_seed(0),
+        "cpu", mesh=mesh)
+    run = step.make_train_step(model, _config(case.model), opt,
+                               attn_impl=case.impl, mesh=mesh)
+    route, global_logits, dropped = moe.route_logits, moe._global_logits, []
+
+    def counted(cfg, logits):
+        r = route(cfg, logits)
+        dropped.append(int((~r["keep"]).sum()))
+        return r
+
     out = {}
-    for name, (axes, impl, _) in CASES.items():
-        mesh = create_mesh(MeshConfig(**axes), device_type="cpu")
-        opt = _optimizer(step)
-        state = step.create_train_state(
-            llama, cfg, opt, torch.Generator().manual_seed(0), "cpu",
-            mesh=mesh)
-        run = step.make_train_step(llama, cfg, opt, attn_impl=impl,
-                                   mesh=mesh)
+    moe.route_logits = counted
+    if case.local_routing:
+        moe._global_logits = lambda shards, logits: (
+            logits.reshape(-1, logits.shape[-1]), None)
+    try:
         for i in range(STEPS):
             state, m = run(state, tokens)
             out[f"{name}/{i}/loss"] = m["loss"].numpy()
             out[f"{name}/{i}/grad_norm"] = m["grad_norm"].numpy()
-        out[f"{name}/step"] = np.asarray(state["step"])
-        for key, leaf in _flatten(state["params"]).items():
-            out[f"{name}/params/{key}"] = leaf.to_local().detach().numpy()
-    mcfg = dataclasses.replace(moe.MoEConfig.tiny(), dtype="float32")
-    for name, axes in REFUSED.items():
-        mesh = create_mesh(MeshConfig(**axes), device_type="cpu")
-        for model, mcfg_ in ((llama, cfg), (moe, mcfg)):
-            try:
-                step.make_train_step(model, mcfg_, _optimizer(step),
-                                     mesh=mesh)
-            except NotImplementedError as e:
-                out[f"refused/{name}/{model.__name__}"] = np.asarray(str(e))
+            if i == 0:
+                out[f"{name}/dropped"] = np.asarray(sum(dropped))
+    finally:
+        moe.route_logits, moe._global_logits = route, global_logits
+    out[f"{name}/step"] = np.asarray(state["step"])
+    for key, leaf in _flatten(state["params"]).items():
+        out[f"{name}/params/{key}"] = leaf.to_local().detach().numpy()
     return out
 
 
-def _child(rank, world, tmp):
+def _rank_cases(cases):
+    tokens = torch.from_numpy(_tokens())
+    out = {}
+    for name, case in cases.items():
+        out.update(_run_case(name, case, tokens))
+    return out
+
+
+def _child(rank, world, tmp, cases):
     try:
         torch.set_num_threads(1)
         import torch.distributed as dist
@@ -120,7 +158,7 @@ def _child(rank, world, tmp):
             "gloo", store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
         try:
-            out = _rank_cases(rank)
+            out = _rank_cases(cases)
             dist.barrier()
             np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
         finally:
@@ -135,60 +173,79 @@ def _child(rank, world, tmp):
 # the parent: the JAX side, the spawn
 
 
-def _jax_refs():
-    """JAX's three steps on each mesh over 4 CPU devices, from the port's
-    initial parameters (each case's own jitted step)."""
+def _jax_model(model: str):
+    """JAX's module of ``model`` and its tiny config in f32."""
+    import importlib
+
+    mod = importlib.import_module(f"ray_tpu.models.{model}")
+    return mod, dataclasses.replace(getattr(mod, CONFIGS[model]).tiny(),
+                                    dtype="float32")
+
+
+def _jax_refs(cases):
+    """JAX's three steps of each case on its mesh over 4 CPU devices, from
+    the port's initial parameters (each case's own jitted step), and each
+    model's gradient at those parameters on the whole batch (no mesh).  A
+    negative control has no reference of its own."""
+    import importlib
+
     import jax
     import jax.numpy as jnp
 
-    from ray_tpu.models import llama as jllama
     from ray_tpu.parallel.mesh import MeshConfig, create_mesh
     from ray_tpu.parallel.sharding import named_shardings
     from ray_tpu.train import step as jstep
-    from ray_tpu_torch.models import llama
     from ray_tpu_torch.train.step import tree_map
 
-    cfg = _config()
-    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float32")
-    params = tree_map(lambda t: t.numpy(), llama.init(
-        cfg, torch.Generator().manual_seed(0), "cpu"))
     tokens = jnp.asarray(_tokens(), jnp.int32)
-    refs = {"start": _flatten(params)}
-    grads = jax.jit(jax.grad(lambda p: jllama.loss_fn(
-        p, tokens, jcfg, attn_impl="xla")))(jax.tree.map(jnp.asarray, params))
-    refs["grad"] = _flatten(jax.tree.map(np.asarray, grads))
-    for name, (axes, _, impl) in CASES.items():
-        mesh = create_mesh(MeshConfig(**axes), devices=jax.devices()[:WORLD])
-        opt = _optimizer(jstep)
-        with mesh:
-            p = jax.device_put(
-                jax.tree.map(jnp.asarray, params),
-                named_shardings(jllama.param_logical_specs(jcfg), mesh))
-            state = {"params": p, "opt_state": opt.init(p),
-                     "step": jnp.zeros((), jnp.int32)}
-            run = jstep.make_train_step(jllama, jcfg, mesh, opt,
-                                        attn_impl=impl, donate=False)
-            for i in range(STEPS):
-                state, m = run(state, tokens)
-                refs[f"{name}/{i}"] = (float(m["loss"]),
-                                       float(m["grad_norm"]))
-            refs[f"{name}/step"] = int(state["step"])
-            refs[f"{name}/params"] = _flatten(
-                jax.tree.map(np.asarray, state["params"]))
+    refs = {}
+    for model in sorted({c.model for c in cases.values()}):
+        jmod, jcfg = _jax_model(model)
+        params = tree_map(lambda t: t.numpy(), importlib.import_module(
+            f"ray_tpu_torch.models.{model}").init(
+                _config(model), torch.Generator().manual_seed(0), "cpu"))
+        refs[f"{model}/start"] = _flatten(params)
+        grads = jax.jit(jax.grad(lambda p: jmod.loss_fn(
+            p, tokens, jcfg, attn_impl="xla")))(
+                jax.tree.map(jnp.asarray, params))
+        refs[f"{model}/grad"] = _flatten(jax.tree.map(np.asarray, grads))
+        for name, case in cases.items():
+            if case.model != model or case.local_routing:
+                continue
+            mesh = create_mesh(MeshConfig(**case.mesh),
+                               devices=jax.devices()[:WORLD])
+            opt = _optimizer(jstep)
+            with mesh:
+                p = jax.device_put(
+                    jax.tree.map(jnp.asarray, params),
+                    named_shardings(jmod.param_logical_specs(jcfg), mesh))
+                state = {"params": p, "opt_state": opt.init(p),
+                         "step": jnp.zeros((), jnp.int32)}
+                run = jstep.make_train_step(jmod, jcfg, mesh, opt,
+                                            attn_impl=case.jax_impl,
+                                            donate=False)
+                for i in range(STEPS):
+                    state, m = run(state, tokens)
+                    refs[f"{name}/{i}"] = (float(m["loss"]),
+                                           float(m["grad_norm"]))
+                refs[f"{name}/step"] = int(state["step"])
+                refs[f"{name}/params"] = _flatten(
+                    jax.tree.map(np.asarray, state["params"]))
     return refs
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp("sharded"))
+def run_ranks(tmp, cases):
+    """Spawn the 4 ranks on ``cases``, compute JAX's side meanwhile, and
+    return (JAX's references, each rank's results)."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_child, args=(r, WORLD, tmp), daemon=True)
+    procs = [ctx.Process(target=_child, args=(r, WORLD, tmp, cases),
+                         daemon=True)
              for r in range(WORLD)]
     start = time.monotonic()
     for p in procs:
         p.start()
     try:
-        refs = _jax_refs()
+        refs = _jax_refs(cases)
     finally:
         for p in procs:
             p.join(max(0.0, start + JOIN_TIMEOUT_S - time.monotonic()))
@@ -211,6 +268,11 @@ def ranks(tmp_path_factory):
     return refs, results
 
 
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return run_ranks(str(tmp_path_factory.mktemp("sharded")), CASES)
+
+
 def _block(full, spec, coords):
     """The block of ``full`` that a rank at ``coords`` holds under
     ``spec`` (partition-spec entries), major axis to minor."""
@@ -225,18 +287,15 @@ def _block(full, spec, coords):
     return full
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_sharded_step_matches_jax(ranks, name):
+def check_case(refs, results, name, case):
     """Loss and pre-clip grad norm of each step on every rank, and every
     rank's block of every parameter after three steps (the entries whose
     first gradient is within 100x Adam's eps to ``ADAM_TOL``)."""
-    from ray_tpu.models import llama as jllama
     from ray_tpu.parallel.sharding import to_partition_spec
 
-    refs, results = ranks
-    axes = CASES[name][0]
-    shape = [axes.get(a, 1) for a in AXES]
-    specs = _flatten(jllama.param_logical_specs(None))
+    jmod, jcfg = _jax_model(case.model)
+    shape = [case.mesh.get(a, 1) for a in AXES]
+    specs = _flatten(jmod.param_logical_specs(jcfg))
     moved, ill, total = 0.0, 0, 0
     for r, res in enumerate(results):
         for i in range(STEPS):
@@ -253,43 +312,23 @@ def test_sharded_step_matches_jax(ranks, name):
             got = res[f"{name}/params/{key}"]
             want = _block(want, spec, coords)
             assert got.shape == want.shape, (r, key)
-            grad = np.abs(_block(refs["grad"][key], spec, coords))
+            grad = np.abs(_block(refs[f"{case.model}/grad"][key], spec,
+                                 coords))
             diff = np.abs(got - want)
             soft = (grad < ILL_CONDITIONED) & (grad > 0)
             assert diff[~soft].max() < PARAM_TOL, (r, key)
             assert diff.max() < ADAM_TOL, (r, key)
             ill, total = ill + int(soft.sum()), total + soft.size
-            start = _block(refs["start"][key], spec, coords)
+            start = _block(refs[f"{case.model}/start"][key], spec, coords)
             moved = max(moved, float(np.abs(want - start).max()))
     assert ill < ILL_SHARE * total
     assert moved > 10 * PARAM_TOL  # the comparison is not of unmoved params
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-@pytest.mark.parametrize("model", ["llama", "moe"])
-def test_unreduced_axes_raise(ranks, name, model):
-    """A mesh whose expert or pipeline axis is above 1 is refused, for the
-    Llama and the MoE alike: the step would return gradients it did not
-    reduce over that axis."""
-    _, results = ranks
-    for res in results:
-        msg = str(res[f"refused/{name}/ray_tpu_torch.models.{model}"])
-        assert ("ep" if "ep" in name else "pp") in msg
-
-
-def test_whole_parameter_models_raise_on_a_mesh():
-    """GPT-2 computes on whole parameters: a mesh with an axis above 1 is
-    refused before any collective (checked without a process group: the
-    mesh is a stand-in that only reports its sizes)."""
-    from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.train import step
-
-    class Mesh:
-        mesh_dim_names = AXES
-
-        def size(self, dim=None):
-            return 2 if dim is None else (2 if AXES[dim] == "fsdp" else 1)
-
-    with pytest.raises(NotImplementedError, match="whole parameters"):
-        step.make_train_step(gpt2, gpt2.GPT2Config.tiny(),
-                             step.default_optimizer(), mesh=Mesh())
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_step_matches_jax(ranks, name):
+    """Loss and pre-clip grad norm of each step on every rank, and every
+    rank's block of every parameter after three steps (the entries whose
+    first gradient is within 100x Adam's eps to ``ADAM_TOL``)."""
+    refs, results = ranks
+    check_case(refs, results, name, CASES[name])
