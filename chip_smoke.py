@@ -26,7 +26,29 @@ Phases, each fatal on failure:
      logits through the kernel agree with the same prefill through the
      plain attention, and a profiled bucket-128 prefill runs the
      tensor-core forward kernel once per layer and no scalar kernel;
-  6. the serving front ends at the serving width (``run_frontends``): the
+  6. the port's runtime on the card (``run_runtime``): the node counts
+     the card as ``"GPU": 1`` (the session root and the native lanes
+     printed); a 64 MB bf16 CUDA tensor ``put`` from the driver (one copy
+     from the device into the store slot) and read in a ``num_gpus=1``
+     task, moved onto the card and checksummed there, its bytes equal (put
+     and get-plus-H2D GB/s, two readings each; the same D2H outside the
+     store into fresh and warm pageable memory and into pinned memory; a
+     small CPU tensor's round trip p50 / p90); the serving engine in an actor holding the card
+     (``num_gpus=1``, built like phase 5's from the same seed) answering
+     phase 5's 3 unloaded requests with the same greedy ids, bit for bit,
+     and its 19-request mix by concurrent actor calls, every request full,
+     the forward kernel launched in the actor's process (its tok/s against
+     phase 5's, a no-op call's and a request's call overhead); the actor's
+     device-memory gauges read from the scheduler's ``metrics_snapshot``
+     after its flusher's push, equal to its own ``memory_stats()``, and
+     its kernel-build counters; a 64 MB bf16 device object
+     (``tensor_transport="device"``) relayed to a consumer in another
+     process with equal bytes and one relay pull (relay GB/s), the same
+     object got in the producer's own process as the resident tensor (same
+     ``data_ptr``, no store write, no relay pull), and
+     ``free_device_object`` releasing its 64 MB on the card, a later get
+     raising "no longer resident";
+  7. the serving front ends at the serving width (``run_frontends``): the
      P/D handoff over the host relay (token ids equal to a fresh single
      engine's, injected pages equal to the prefill engine's), the KV tier
      (a sealed spine prehydrated into a fresh engine with equal pages, the
@@ -38,7 +60,7 @@ Phases, each fatal on failure:
      engine metrics agreeing with the phase's own counts, and the forward
      kernel launched during the phase; the handoff's extract and inject
      GB/s and seal and hydrate ms;
-  7. routed serving at the serving width (``run_serve_bench``): two
+  8. routed serving at the serving width (``run_serve_bench``): two
      engines behind the pow-2 and prefix-aware routers under
      ``_private/serve_bench.py``'s load-wall ladder (4:128, 16:256,
      32:512: the reference's top rung cut to half its requests), then its
@@ -50,26 +72,26 @@ Phases, each fatal on failure:
      ``lm.prefill``; each rung's req/s, TTFT, evictions
      and hit rate, the reference's acceptance as computed here, and the
      device-busy share of a profiled rerun of the top prefix-aware cell;
-  8. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
+  9. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
      12, seq 1024): the first step's loss and grad norm through the kernels
      agree with the plain attention's, the loss falls on a repeated batch,
      each of the three wrappers launches 12 times a step, and a few steps
      are timed and profiled; the profiled step shows 12 launches of each
      tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
      (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel;
-  9. the user's train loop (``run_torch_trainer``): ``TorchTrainer`` with
+ 10. the user's train loop (``run_torch_trainer``): ``TorchTrainer`` with
      one NCCL GPU worker over ``from_numpy`` int32 token rows, read by
      ``get_dataset_shard("train").iter_torch_batches`` onto the card
      (pinned staging, a side stream, two batches in flight) into phase
-     8's GPT-2 124M step, 3 warm-up and 24 timed steps: the loss finite
+     9's GPT-2 124M step, 3 warm-up and 24 timed steps: the loss finite
      and falling, the rows consumed equal to the source's (sha256), the
      worker's first loss equal to this process's own step on the same
      parameters and rows, 12 launches of each kernel a step in the
-     worker; its tokens/s against phase 8's, the ``next(batch)`` wait
+     worker; its tokens/s against phase 9's, the ``next(batch)`` wait
      p50 / p90, the share of copies done before the step on the batch
      before them ended, and one batch's and a 64 MB block's H2D GB/s,
      pinned and pageable;
- 10. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
+ 11. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
      and aux against the plain attention (on the tokens both forwards
@@ -78,7 +100,7 @@ Phases, each fatal on failure:
      launches a step, timed and profiled steps with peak memory beside
      its reckoning, and the first step on a world-size-1 NCCL mesh
      through the zigzag dispatch, equal to the step without the mesh;
- 11. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
+ 12. the Llama-3 8B recipe at Llama-3 8B's widths cut to four layers,
      batch 2 x seq 8192 (``run_llama3_trainer``), between two readings of
      the kernels at its attention shape (32 heads on 8 KV heads, head_dim
      128, seq 8192; the plain versions at 8 heads on 2): first
@@ -91,7 +113,7 @@ Phases, each fatal on failure:
      first step against the plain attention (one KV head's group at a
      time), the loss falling, 8 / 4 / 4 launches a step, timed and
      profiled steps with peak memory beside its reckoning;
- 12. online RLlib (``run_rllib``), the learners on the card and the env
+ 13. online RLlib (``run_rllib``), the learners on the card and the env
      runners' forward on the CPU: (a) each learner update on the card
      against the same update on the CPU, from the same parameters and a
      recorded batch (``ppo_update`` over PPOConfig's 4 epochs x 4
@@ -747,17 +769,17 @@ def mix_prompt(i: int, n: int, vocab: int):
     return [(7 * i + 13 * j + 1) % vocab for j in range(n)]
 
 
-def run_engine(report):
+def serving_engine():
+    """bench.py's serving model (bench.py:85-90) at random weights from seed
+    0 and its engine config (16 slots, 512 pages), started and warmed on
+    the 128 and 1024 buckets, the burst and the sampled step; ``run_engine``
+    and ``run_runtime``'s engine actor build it alike."""
     import torch
 
-    from ray_tpu_torch.llm import model as lm
     from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine, \
         SamplingParams
-    from ray_tpu_torch.llm.paged_cache import CacheConfig, init_cache
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops import attention
 
-    # bench.py's serving model (bench.py:85-90) and engine config
     cfg = llama.LlamaConfig(
         vocab_size=32_000, d_model=768, n_layers=12, n_heads=12,
         n_kv_heads=12, d_ff=3072, max_seq_len=1024, remat=False)
@@ -767,55 +789,84 @@ def run_engine(report):
                         max_seq_len=1024)
     engine = LLMEngine(state, cfg, ecfg)
     del state
+    vocab = cfg.vocab_size
+    engine.start()
+    engine.generate(mix_prompt(1000, 100, vocab),
+                    SamplingParams(max_tokens=8))
+    engine.generate(mix_prompt(1001, 600, vocab),
+                    SamplingParams(max_tokens=4))
+    engine.generate(mix_prompt(1002, 128, vocab), SamplingParams(
+        max_tokens=4, temperature=0.8, seed=1))
+    torch.cuda.synchronize()
+    return engine, cfg
+
+
+def drain(req, timeout=300):
+    """Every token id a submitted request streams, in order."""
+    toks = []
+    while True:
+        item = req.out_queue.get(timeout=timeout)
+        if item is None:
+            return toks
+        if isinstance(item, Exception):
+            raise item
+        toks.append(item)
+
+
+# run_engine's request mix after its 3 unloaded requests: (seed, prompt
+# length, max_tokens, temperature, sampling seed); the last request shares
+# request 0's first 112 tokens (MIX_SHARED) and is submitted once request 0
+# has its first token, so the prefix-cache suffix prefill runs
+UNLOADED = [(2000 + i, 128, 4) for i in range(3)]
+MIX = ([(i, 128, 32, 0.0, None) for i in range(16)]
+       + [(100, 600, 32, 0.0, None), (101, 128, 32, 0.8, 7)])
+MIX_SHARED = (0, 112, 102, 16, 32)  # (of seed, its tokens, seed, tokens, max)
+
+
+def mix_shared_prompt(vocab: int):
+    of, n_of, seed, n, _ = MIX_SHARED
+    return mix_prompt(of, 128, vocab)[:n_of] + mix_prompt(seed, n, vocab)
+
+
+def run_engine(report):
+    import torch
+
+    from ray_tpu_torch.llm import model as lm
+    from ray_tpu_torch.llm.engine import SamplingParams
+    from ray_tpu_torch.llm.paged_cache import CacheConfig, init_cache
+    from ray_tpu_torch.ops import attention
+
+    engine, cfg = serving_engine()
     kv_bytes = 2 * engine.cache_k.numel() * engine.cache_k.element_size()
     vocab = cfg.vocab_size
 
     def prompt(i, n):
         return mix_prompt(i, n, vocab)
 
-    def drain(req, timeout=300):
-        toks = []
-        while True:
-            item = req.out_queue.get(timeout=timeout)
-            if item is None:
-                return toks
-            if isinstance(item, Exception):
-                raise item
-            toks.append(item)
-
-    engine.start()
     try:
-        # warm-up: the 128 and 1024 buckets, the burst and the sampled step
-        engine.generate(prompt(1000, 100), SamplingParams(max_tokens=8))
-        engine.generate(prompt(1001, 600), SamplingParams(max_tokens=4))
-        engine.generate(prompt(1002, 128), SamplingParams(
-            max_tokens=4, temperature=0.8, seed=1))
-        torch.cuda.synchronize()
-
         attention.flash_forward.launches = 0
         stats0 = engine.stats()
         ttfts = []
-        for i in range(3):  # unloaded: one request at a time
-            r = engine.submit(prompt(2000 + i, 128),
-                              SamplingParams(max_tokens=4))
-            if len(drain(r)) != 4:
+        unloaded_ids = []
+        for seed, n, max_tokens in UNLOADED:  # one request at a time
+            r = engine.submit(prompt(seed, n),
+                              SamplingParams(max_tokens=max_tokens))
+            ids = drain(r)
+            if len(ids) != max_tokens:
                 raise SystemExit("unloaded request streamed short")
+            unloaded_ids.append(ids)
             ttfts.append(r.first_token_at - r.submitted_at)
 
         t0 = time.monotonic()
-        reqs = [(engine.submit(prompt(i, 128), SamplingParams(
-            max_tokens=32)), 32) for i in range(16)]
-        reqs.append((engine.submit(prompt(100, 600), SamplingParams(
-            max_tokens=32)), 32))
-        reqs.append((engine.submit(prompt(101, 128), SamplingParams(
-            max_tokens=32, temperature=0.8, seed=7)), 32))
+        reqs = [(engine.submit(prompt(seed, n), SamplingParams(
+            max_tokens=m, temperature=temp, seed=sseed)), m)
+            for seed, n, m, temp, sseed in MIX]
         # shares request 0's first 7 pages: admitted after request 0
         # registered its blocks, so the prefix-cache suffix prefill runs
         while reqs[0][0].first_token_at is None:
             time.sleep(0.001)
-        shared = prompt(0, 128)[:112] + prompt(102, 16)
-        reqs.append((engine.submit(shared, SamplingParams(max_tokens=32)),
-                     32))
+        reqs.append((engine.submit(mix_shared_prompt(vocab), SamplingParams(
+            max_tokens=MIX_SHARED[-1])), MIX_SHARED[-1]))
         outs = [drain(r) for r, _ in reqs]
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -861,6 +912,7 @@ def run_engine(report):
     res = {"requests": len(reqs), "tokens": n_tokens, "wall_s": wall,
            "output_tok_s": n_tokens / wall,
            "ttft_unloaded_ms": sorted(t * 1e3 for t in ttfts),
+           "unloaded_ids": unloaded_ids,
            "flash_launches": launches, "prefills": prefills,
            "launches_per_prefill": launches / max(prefills, 1),
            "prefix_hit_tokens": hit,
@@ -931,6 +983,456 @@ def profile_steps(engine, cfg, ccfg, toks, rows, slots):
                          f"{cfg.n_layers} tensor-core forwards and no scalar "
                          f"kernel")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase: the port's runtime on the card (run_runtime)
+
+RUNTIME_OBJECT_BYTES = 64 << 20  # the 64 MB bf16 tensor of (b) and (d)
+RUNTIME_STORE_BYTES = 1 << 30
+RUNTIME_ROUND_TRIPS = 100
+RUNTIME_NOOP_CALLS = 100
+RUNTIME_TIMEOUT_S = 600
+# (e): the gauge pushed by the engine actor's flusher may trail its own
+# reading by one allocation of the allocator's smallest block
+RUNTIME_GAUGE_SLACK = 1 << 20
+
+
+def byte_checksum(t):
+    """Two exact integer sums over a tensor's bytes read as int16: equal
+    bytes give equal sums on any device (int64 accumulation)."""
+    import torch
+
+    w = t.reshape(-1).view(torch.uint8).view(torch.int16).to(torch.int64)
+    idx = torch.arange(w.numel(), device=w.device, dtype=torch.int64) % 65521
+    return [int(w.sum()), int((w * idx).sum())]
+
+
+def gauge_value(snapshot, family, pid, device=None):
+    """The value of ``family`` pushed by process ``pid`` in a scheduler
+    ``metrics_snapshot``, or None."""
+    for proc in snapshot.get("app", []) or []:
+        for m in proc:
+            if m.get("name") != family:
+                continue
+            keys = list(m.get("tag_keys") or ())
+            for tags, value in (m.get("values") or {}).items():
+                tags = dict(zip(keys, tags))
+                if tags.get("pid") != str(pid):
+                    continue
+                if device is not None and tags.get("device") != str(device):
+                    continue
+                return value
+    return None
+
+
+def runtime_checksum_task(box):
+    """(b), in a ``num_gpus=1`` task: get the object, move it onto the card,
+    checksum it there; twice, each get plus copy timed."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    torch.zeros(1, device="cuda")  # the context, outside the timing
+    readings, sums = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = rt.get(box[0], timeout=RUNTIME_TIMEOUT_S)
+        dev = host.to("cuda")
+        torch.cuda.synchronize()
+        readings.append(time.perf_counter() - t0)
+        sums = byte_checksum(dev)
+        zero_copy = not host.is_cuda
+        del host, dev
+    return {"sums": sums, "get_h2d_s": readings, "host_view": zero_copy,
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+class RuntimeEngineActor:
+    """(c): the serving engine in an actor holding the card."""
+
+    def __init__(self):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.engine, self.cfg = serving_engine()
+        self.reqs = {}
+
+    def ping(self):
+        return None
+
+    def reset_launches(self):
+        from ray_tpu_torch.ops import attention
+
+        attention.flash_forward.launches = 0
+
+    def launches(self):
+        from ray_tpu_torch.ops import attention
+
+        return attention.flash_forward.launches
+
+    def generate(self, key, prompt, max_tokens, temperature=0.0, seed=None,
+                 after=None):
+        """One request; ``after`` names a request whose first token must
+        have come before this one is submitted."""
+        from ray_tpu_torch.llm.engine import SamplingParams
+
+        if after is not None:
+            while (after not in self.reqs
+                   or self.reqs[after].first_token_at is None):
+                time.sleep(0.0005)
+        r = self.engine.submit(prompt, SamplingParams(
+            max_tokens=max_tokens, temperature=temperature, seed=seed))
+        self.reqs[key] = r
+        ids = drain(r)
+        done = time.monotonic()
+        return {"ids": ids, "engine_s": done - r.submitted_at,
+                "ttft_s": r.first_token_at - r.submitted_at}
+
+    def stop_engine(self):
+        import torch
+
+        self.engine.stop()
+        torch.cuda.synchronize()
+        return os.getpid()
+
+    def memory(self):
+        import torch
+
+        stats = torch.cuda.memory_stats(0)
+        return {"pid": os.getpid(),
+                "current": stats["allocated_bytes.all.current"],
+                "peak": stats["allocated_bytes.all.peak"]}
+
+
+class RuntimeProducer:
+    """(d): keeps a 64 MB bf16 tensor on the card under
+    ``tensor_transport="device"``, and consumes its own objects."""
+
+    def make(self, n_bytes, seed):
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t = torch.randn(n_bytes // 2, generator=gen, device="cuda",
+                        dtype=torch.float32).to(torch.bfloat16)
+        self.last = (t.data_ptr(), byte_checksum(t))
+        return t
+
+    def made(self):
+        return self.last
+
+    def allocated(self):
+        import gc
+
+        import torch
+
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(0)
+
+    def consume_own(self, box):
+        """Get this actor's own device object: the resident tensor itself,
+        with no store write and no relay pull."""
+        from ray_tpu_torch._private import device_objects as dev_mod
+        from ray_tpu_torch._private.worker import global_worker
+        from ray_tpu_torch.experimental import get_device_object
+
+        store = global_worker().store
+        writes = []
+        originals = {}
+        for name in ("put", "put_parts", "create"):
+            orig = getattr(store, name)
+            originals[name] = orig
+
+            def spy(*a, _name=name, _orig=orig, **kw):
+                writes.append(_name)
+                return _orig(*a, **kw)
+            setattr(store, name, spy)
+        relay = dev_mod.RELAY_PULLS
+        try:
+            out = get_device_object(box[0], timeout=RUNTIME_TIMEOUT_S)
+        finally:
+            for name, orig in originals.items():
+                setattr(store, name, orig)
+        return {"writes": writes, "relay_delta": dev_mod.RELAY_PULLS - relay,
+                "data_ptr": out.data_ptr(), "is_cuda": out.is_cuda}
+
+
+class RuntimeConsumer:
+    """(d): another process pulls the device object over the host relay."""
+
+    def pull(self, box):
+        import torch  # noqa: F401  (imported before the timing)
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private import device_objects as dev_mod
+
+        relay = dev_mod.RELAY_PULLS
+        t0 = time.perf_counter()
+        out = rt.get(box[0], timeout=RUNTIME_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        return {"sums": byte_checksum(out), "secs": secs,
+                "relay_delta": dev_mod.RELAY_PULLS - relay,
+                "device": str(out.device), "dtype": str(out.dtype),
+                "numel": out.numel(), "pid": os.getpid()}
+
+
+def run_runtime(report):
+    """Phase 6: the port's runtime on the card (after run_engine, whose
+    ids and tok/s it is held to)."""
+    import numpy as np
+    import torch
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import device_objects as dev_mod
+    from ray_tpu_torch._private import direct
+    from ray_tpu_torch._private import profiling
+    from ray_tpu_torch._private.node import session_root
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.experimental import free_device_object
+
+    res = {}
+    t_phase = time.monotonic()
+    # (a) the runtime: the node counts the card
+    node = rt.init(num_cpus=8, object_store_memory=RUNTIME_STORE_BYTES)
+    try:
+        total = rt.cluster_resources()
+        lanes = {"rtpu_core": direct.native_core() is not None,
+                 "native_gcs": node._gcs_proc is not None,
+                 "native_store": node.store_server is not None,
+                 "native_raylet": bool(node.scheduler._raylet_native)}
+        res.update(resources=total, session_root=session_root(),
+                   session_dir=node.session_dir, lanes=lanes)
+        print(f"runtime: session {node.session_dir} (root {session_root()});"
+              f" resources {total}; lanes {lanes}", flush=True)
+        if total.get("GPU") != 1:
+            raise SystemExit(f"the node reports {total.get('GPU')} GPUs, "
+                             "not 1")
+        parts_s = {"a": time.monotonic() - t_phase}
+
+        # (b) CUDA tensors through the object store
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        src = torch.randn(RUNTIME_OBJECT_BYTES // 2, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        want = byte_checksum(src)
+        put_s, refs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refs.append(rt.put(src))
+            put_s.append(time.perf_counter() - t0)
+        task = rt.remote(num_gpus=1)(runtime_checksum_task)
+        got = rt.get(task.remote([refs[1]]), timeout=RUNTIME_TIMEOUT_S)
+        if got["sums"] != want:
+            raise SystemExit(f"the 64 MB object's bytes differ on the card: "
+                             f"{got['sums']} != {want}")
+        # the same D2H without the store: into fresh pageable pages (each
+        # touched first by the copy), again into the same pages, and into
+        # pinned memory; splits put's time into first touch and the copy
+        flat = src.reshape(-1).view(torch.uint8)
+        pageable = torch.empty(flat.numel(), dtype=torch.uint8)
+        pinned = torch.empty(flat.numel(), dtype=torch.uint8,
+                             pin_memory=True)
+        d2h = {}
+        for key, dst in (("pageable_fresh", pageable),
+                         ("pageable_warm", pageable), ("pinned", pinned)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.copy_(flat)
+            torch.cuda.synchronize()
+            d2h[key] = RUNTIME_OBJECT_BYTES / 1e9 / (time.perf_counter() - t0)
+        del flat, pageable, pinned
+        small = torch.arange(1024, dtype=torch.float32)
+        trips = []
+        for _ in range(RUNTIME_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            back = rt.get(rt.put(small), timeout=RUNTIME_TIMEOUT_S)
+            trips.append(time.perf_counter() - t0)
+        if not torch.equal(back, small):
+            raise SystemExit("a small CPU tensor came back changed")
+        gb = RUNTIME_OBJECT_BYTES / 1e9
+        res["store"] = {
+            "bytes": RUNTIME_OBJECT_BYTES, "checksum": want,
+            "put_gbps": [gb / s for s in put_s],
+            "get_h2d_gbps": [gb / s for s in got["get_h2d_s"]],
+            "task_visible_devices": got["visible"],
+            "d2h_gbps": d2h,
+            "small_round_trip_ms": {
+                "p50": 1e3 * float(np.percentile(trips, 50)),
+                "p90": 1e3 * float(np.percentile(trips, 90))}}
+        del refs, src
+        parts_s["b"] = time.monotonic() - t_phase
+        print(f"runtime store: 64 MB bf16 put (D2H into the store) "
+              f"{res['store']['put_gbps'][0]:.3f} / "
+              f"{res['store']['put_gbps'][1]:.3f} GB/s; get + H2D in a "
+              f"num_gpus=1 task {res['store']['get_h2d_gbps'][0]:.3f} / "
+              f"{res['store']['get_h2d_gbps'][1]:.3f} GB/s, bytes equal; "
+              f"the same D2H outside the store: fresh pageable "
+              f"{d2h['pageable_fresh']:.3f}, warm pageable "
+              f"{d2h['pageable_warm']:.3f}, pinned {d2h['pinned']:.3f} "
+              f"GB/s; "
+              f"4 KB CPU tensor round trip p50 "
+              f"{res['store']['small_round_trip_ms']['p50']:.4f} ms, p90 "
+              f"{res['store']['small_round_trip_ms']['p90']:.4f} ms",
+              flush=True)
+
+        # (c) an actor holding the card serves run_engine's requests
+        Engine = rt.remote(num_gpus=1, max_concurrency=32)(
+            RuntimeEngineActor)
+        actor = Engine.remote()
+        rt.get(actor.ping.remote(), timeout=RUNTIME_TIMEOUT_S)
+        calls = []
+        for _ in range(RUNTIME_NOOP_CALLS):
+            t0 = time.perf_counter()
+            rt.get(actor.ping.remote(), timeout=RUNTIME_TIMEOUT_S)
+            calls.append(time.perf_counter() - t0)
+        rt.get(actor.reset_launches.remote(), timeout=RUNTIME_TIMEOUT_S)
+        vocab = 32_000
+        unloaded, overhead = [], []
+        for k, (seed, n, m) in enumerate(UNLOADED):
+            t0 = time.perf_counter()
+            out = rt.get(actor.generate.remote(
+                f"u{k}", mix_prompt(seed, n, vocab), m),
+                timeout=RUNTIME_TIMEOUT_S)
+            overhead.append(time.perf_counter() - t0 - out["engine_s"])
+            unloaded.append(out["ids"])
+        engine_ids = report["engine"]["unloaded_ids"]
+        if unloaded != engine_ids:
+            raise SystemExit(f"the actor's unloaded ids {unloaded} differ "
+                             f"from run_engine's {engine_ids}")
+        t0 = time.monotonic()
+        pending = [actor.generate.remote(
+            f"m{j}", mix_prompt(seed, n, vocab), m, temp, sseed)
+            for j, (seed, n, m, temp, sseed) in enumerate(MIX)]
+        pending.append(actor.generate.remote(
+            "shared", mix_shared_prompt(vocab), MIX_SHARED[-1], after="m0"))
+        outs = rt.get(pending, timeout=RUNTIME_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        wants = [m for _, _, m, _, _ in MIX] + [MIX_SHARED[-1]]
+        short = [(j, len(o["ids"]), w) for j, (o, w)
+                 in enumerate(zip(outs, wants)) if len(o["ids"]) != w]
+        if short:
+            raise SystemExit(f"the actor's requests streamed short: {short}")
+        launches = rt.get(actor.launches.remote(), timeout=RUNTIME_TIMEOUT_S)
+        if launches <= 0:
+            raise SystemExit("the engine actor never launched the forward "
+                             "kernel")
+        n_tok = sum(len(o["ids"]) for o in outs)
+        ratio = (n_tok / wall) / report["engine"]["output_tok_s"]
+        res["actor"] = {
+            "noop_call_ms": {"p50": 1e3 * float(np.percentile(calls, 50)),
+                             "p90": 1e3 * float(np.percentile(calls, 90))},
+            "unloaded_ids_equal": True,
+            "request_overhead_ms": [1e3 * o for o in overhead],
+            "requests": len(outs), "tokens": n_tok, "wall_s": wall,
+            "output_tok_s": n_tok / wall, "of_run_engine": ratio,
+            "flash_launches": launches}
+        print(f"runtime actor: no-op call p50 "
+              f"{res['actor']['noop_call_ms']['p50']:.4f} ms, p90 "
+              f"{res['actor']['noop_call_ms']['p90']:.4f} ms; 3 unloaded "
+              f"requests' ids equal run_engine's, call overhead "
+              f"{', '.join(f'{1e3 * o:.3f}' for o in overhead)} ms; "
+              f"{len(outs)} requests, {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} output tok/s ({ratio:.4f} of run_engine's);"
+              f" forward launches in the actor {launches}", flush=True)
+
+        parts_s["c"] = time.monotonic() - t_phase
+        # (e) device telemetry of the engine actor, through the scheduler
+        pid = rt.get(actor.stop_engine.remote(), timeout=RUNTIME_TIMEOUT_S)
+        tele = profiling._DeviceTelemetry
+        ctx = global_worker()
+        deadline = time.monotonic() + 60
+        while True:
+            before = rt.get(actor.memory.remote(), timeout=RUNTIME_TIMEOUT_S)
+            snap = ctx.rpc("metrics_snapshot", {})
+            after = rt.get(actor.memory.remote(), timeout=RUNTIME_TIMEOUT_S)
+            in_use = gauge_value(snap, tele.IN_USE, pid, 0)
+            peak = gauge_value(snap, tele.PEAK, pid, 0)
+            lo = min(before["current"], after["current"])
+            hi = max(before["current"], after["current"])
+            if (in_use is not None
+                    and lo - RUNTIME_GAUGE_SLACK <= in_use
+                    <= hi + RUNTIME_GAUGE_SLACK):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(
+                    f"the engine actor's device gauges did not reach the "
+                    f"scheduler: in use {in_use}, own {lo}..{hi}")
+            time.sleep(0.5)
+        builds = gauge_value(snap, tele.BUILDS, pid)
+        build_s = gauge_value(snap, tele.BUILD_SECONDS, pid)
+        res["telemetry"] = {"pid": pid, "gauge_in_use": in_use,
+                            "gauge_peak": peak, "own_current": lo,
+                            "own_peak": after["peak"],
+                            "kernel_builds": builds,
+                            "kernel_build_s": build_s}
+        print(f"runtime telemetry: engine actor pid {pid} device bytes in "
+              f"use {in_use} (own reading {lo}), peak {peak} (own "
+              f"{after['peak']}); kernel builds {builds} taking {build_s} s",
+              flush=True)
+        rt.kill(actor)
+        parts_s["e"] = time.monotonic() - t_phase
+
+        # (d) device objects
+        Producer = rt.remote(num_gpus=1, max_concurrency=2)(RuntimeProducer)
+        Consumer = rt.remote(RuntimeConsumer)
+        prod, cons = Producer.remote(), Consumer.remote()
+        base = rt.get(prod.allocated.remote(), timeout=RUNTIME_TIMEOUT_S)
+        ref = prod.make.options(tensor_transport="device").remote(
+            RUNTIME_OBJECT_BYTES, 9)
+        rt.wait([ref], timeout=RUNTIME_TIMEOUT_S)
+        ptr, sums = rt.get(prod.made.remote(), timeout=RUNTIME_TIMEOUT_S)
+        relay = rt.get(cons.pull.remote([ref]), timeout=RUNTIME_TIMEOUT_S)
+        if relay["sums"] != sums or relay["relay_delta"] != 1:
+            raise SystemExit(f"the relayed device object differs: {relay} "
+                             f"against {sums}")
+        own = rt.get(prod.consume_own.remote([ref]),
+                     timeout=RUNTIME_TIMEOUT_S)
+        if own["writes"] or own["relay_delta"] or own["data_ptr"] != ptr:
+            raise SystemExit(f"the same-process get was not the resident "
+                             f"tensor: {own} (resident data_ptr {ptr})")
+        held = rt.get(prod.allocated.remote(), timeout=RUNTIME_TIMEOUT_S)
+        if not free_device_object(ref):
+            raise SystemExit("free_device_object found nothing resident")
+        freed = rt.get(prod.allocated.remote(), timeout=RUNTIME_TIMEOUT_S)
+        if held - freed < RUNTIME_OBJECT_BYTES:
+            raise SystemExit(f"freeing the device object released "
+                             f"{held - freed} bytes, not 64 MB")
+        try:
+            rt.get(ref, timeout=RUNTIME_TIMEOUT_S)
+        except Exception as e:  # noqa: BLE001
+            if "no longer resident" not in str(e):
+                raise
+        else:
+            raise SystemExit("a get after free_device_object succeeded")
+        res["device_objects"] = {
+            "relay_gbps": gb / relay["secs"], "relay": relay,
+            "same_process": own, "resident_data_ptr": ptr,
+            "allocated_before": base, "allocated_held": held,
+            "allocated_freed": freed, "released": held - freed}
+        print(f"runtime device objects: relay to another process "
+              f"{gb / relay['secs']:.3f} GB/s ({relay['device']} "
+              f"{relay['dtype']}), checksum equal, relay pulls +1; same "
+              f"process: the resident tensor (data_ptr equal), 0 store "
+              f"writes, relay pulls +0; free released "
+              f"{(held - freed) / 2**20:.1f} MiB, a later get raises",
+              flush=True)
+        rt.kill(prod)
+        rt.kill(cons)
+        parts_s["d"] = time.monotonic() - t_phase
+        res["parts_s"] = parts_s
+        print(f"runtime phase: seconds from its start at the end of each "
+              f"part {parts_s}", flush=True)
+    finally:
+        rt.shutdown()
+    res["phase_s"] = time.monotonic() - t_phase
+    report["runtime"] = res
+    return res["actor"]["flash_launches"]
 
 
 class Handle:
@@ -2798,7 +3300,7 @@ def _llama3_steps(report, cfg, mesh, n_params, n_tok, need_mem):
 
 
 # --------------------------------------------------------------------------
-# Online RLlib (phase 11).  The card's machine has no gymnasium, so the
+# Online RLlib (phase 13).  The card's machine has no gymnasium, so the
 # phase steps this CartPole; tests/test_torch_rllib_envs.py holds it to
 # gymnasium's CartPole-v1 step for step.
 
@@ -2908,7 +3410,7 @@ def rl_state_err(got, want, opt_state=None):
 
 
 def rl_update_cases(runner_cls, cartpole, target_match):
-    """The recorded inputs of phase 11's update agreement: {name: (fn, its
+    """The recorded inputs of phase 13's update agreement: {name: (fn, its
     CPU inputs)}, where ``fn(inputs, device)`` runs one learner update on
     a copy of the inputs on ``device`` and returns (the trees to compare
     by name, {name of a parameter tree: its Adam state}, which says which
@@ -3065,7 +3567,7 @@ def rl_update_cases(runner_cls, cartpole, target_match):
 
 
 # --------------------------------------------------------------------------
-# Offline RL and DreamerV3 (phase 11 (d), (e)): the expert of
+# Offline RL and DreamerV3 (phase 13 (d), (e)): the expert of
 # tests/test_sac_marwil.py, a numpy ``iter_batches`` source for BC, and the
 # DreamerV3 configuration of tests/test_dreamerv3.py's learning test.
 
@@ -3835,6 +4337,7 @@ def main() -> int:
     first = time_attention(report, 1)
     check_apply(report)
     engine_launches = run_engine(report)
+    runtime_launches = run_runtime(report)
     frontend_launches = run_frontends(report)
     serve_launches = run_serve_bench(report)
     trainer_launches = run_trainer(report)
@@ -3864,6 +4367,7 @@ def main() -> int:
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":
             by_path = {"engine": engine_launches,
+                       "runtime": runtime_launches,
                        "frontends": frontend_launches,
                        "serve_bench": serve_launches, **by_path}
         entry = {"name": name, "route": "cuda",

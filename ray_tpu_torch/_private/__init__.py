@@ -1,1 +1,1 @@
-"""Benchmarks of the port that are not part of its API."""
+"""The runtime's internals and the port's benchmarks; not part of its API."""

@@ -1,0 +1,467 @@
+"""Central flag registry: every RTPU_* knob in one table.
+
+Counterpart of the reference's ``RAY_CONFIG`` X-macro table
+(Ray's src/ray/common/ray_config_def.h — 227 flags in one file,
+overridable via env vars on every process, plus ``_system_config``
+propagation from ``ray.init`` to all nodes).  Without it, ~16 ``RTPU_*``
+env vars would be read ad hoc at import time across scattered modules, with
+no single source of truth and no propagation to external-node processes.
+This module is the fix:
+
+- ``FLAGS``: the one table — name, type, default, doc.
+- ``get(name)``: typed read with the registered default.
+- ``effective()``: the full resolved config (``rtpu status`` dumps it).
+- ``explicit()``: only the flags actually set in this environment — what a
+  head publishes to the GCS so joining nodes inherit cluster-level config
+  (see Node._publish_flags / Node._adopt_cluster_flags).
+
+Modules may still read ``os.environ`` at import time for hot-path constants
+(import cost matters in workers); the contract enforced by
+tests/test_flags.py is that every such env var IS REGISTERED HERE, so the
+table can never silently drift from reality.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass(frozen=True)
+class FlagSpec:
+    name: str
+    type: type
+    default: Any
+    doc: str
+
+
+def _b(name: str, default: bool, doc: str) -> FlagSpec:
+    return FlagSpec(name, bool, default, doc)
+
+
+def _i(name: str, default: int, doc: str) -> FlagSpec:
+    return FlagSpec(name, int, default, doc)
+
+
+def _f(name: str, default: float, doc: str) -> FlagSpec:
+    return FlagSpec(name, float, default, doc)
+
+
+def _s(name: str, default: str, doc: str) -> FlagSpec:
+    return FlagSpec(name, str, default, doc)
+
+
+_SPECS = [
+    # -- cluster identity / transport ---------------------------------------
+    _s("RTPU_CLUSTER_TOKEN", "",
+       "Shared secret authenticating TCP control-plane connections; "
+       "generated by the head, inherited by nodes/workers"),
+    _s("RTPU_CLIENT_TOKEN", "",
+       "Auth token for rtpu:// remote-driver client connections"),
+    _s("RTPU_LISTEN_HOST", "",
+       "Bind control-plane services to TCP on this interface (empty = "
+       "unix sockets, single host)"),
+    _s("RAY_TPU_ADDRESS", "",
+       "GCS address injected into job-submission driver processes"),
+    # -- GCS ----------------------------------------------------------------
+    _s("RTPU_GCS_PERSIST", "",
+       "Path for GCS durable snapshots; a restarted head restores "
+       "actors/PGs/KV from it"),
+    _b("RTPU_PYTHON_GCS", False,
+       "Use the in-process Python GCS instead of the native C++ daemon"),
+    _s("RTPU_GCS_ADDRESS", "",
+       "(internal) GCS endpoint handed to worker processes for pubsub"),
+    _f("RTPU_NODE_DEATH_TIMEOUT_S", 5.0,
+       "Heartbeat silence after which a node is declared dead"),
+    # -- core runtime -------------------------------------------------------
+    _i("RTPU_INLINE_MAX", 100 * 1024,
+       "Max serialized size returned inline from direct actor calls; "
+       "larger results go through the shm store"),
+    _i("RTPU_EAGER_DELETE_MIN", 64 * 1024,
+       "Min object size for eager store delete when the last never-"
+       "escaped local ref dies (smaller objects wait for LRU)"),
+    _i("RTPU_INLINE_PUT_MAX", 64 * 1024,
+       "Puts at or below this ride the store's one-round-trip OP_PUT "
+       "(serialize to scratch + daemon-side copy) instead of "
+       "create/write/seal"),
+    # -- object transfer / store data plane ---------------------------------
+    _i("RTPU_FETCH_CHUNK", 1 << 20,
+       "Per-request range size for framed cross-node object transfers "
+       "(fallback data plane; reference object_manager.h:53 "
+       "object_chunk_size).  Each fetch stripe requests this much per "
+       "round trip, so a pull stages at most RTPU_TRANSFER_STRIPES x "
+       "this in flight; 1MB keeps that bounded while amortizing the "
+       "framing cost (4MB bought nothing once pulls went parallel)"),
+    _i("RTPU_TRANSFER_STRIPES", 4,
+       "Parallel range streams per large object transfer, on both the "
+       "native daemon-to-daemon plane (shm_store.cc XFER_PULL_RANGE) "
+       "and the framed Python fallback (clamped to 1..16; objects "
+       "under ~1MB always use a single stream)"),
+    _i("RTPU_ZCOPY_PUT_MIN", 256 * 1024,
+       "Puts at or above this size write payload bytes directly into "
+       "the client's shm mapping (create/write/seal, no bytes on the "
+       "daemon socket); below it the one-round-trip streamed OP_PUT "
+       "wins"),
+    _i("RTPU_PREFAULT_BYTES", 128 << 20,
+       "How much of the shm segment a store client pre-faults at "
+       "connect/remap so zero-copy puts never pay per-page soft "
+       "faults on the hot allocator prefix"),
+    _f("RTPU_PULL_BAN_S", 5.0,
+       "How long a location that failed a pull is skipped before retry "
+       "(reference: pull_manager.cc retry/ban)"),
+    _f("RTPU_PULL_RETRY_S", 2.0,
+       "How often a blocked get re-requests the cross-node pull"),
+    _i("RTPU_PUSH_CONCURRENCY", 2,
+       "Max concurrent proactive object pushes per node (reference: "
+       "push_manager.cc)"),
+    _f("RTPU_PARTIAL_TTL_S", 60.0,
+       "Seconds before an abandoned half-received push assembly is "
+       "dropped and its store extent reclaimed"),
+    _f("RTPU_SEAL_FLUSH_WINDOW_S", 0.01,
+       "Batching window for seal-location publishes to the GCS"),
+    _i("RTPU_STORE_POOL_MAX", 8,
+       "Per-client store daemon connection pool cap"),
+    _s("RTPU_STORE_TOKEN", "",
+       "Auth token for the store daemons' TCP transfer plane (set "
+       "automatically from the cluster token; env-only, never argv)"),
+    _i("RTPU_XFER_TIMEOUT_S", 30,
+       "Socket send/recv timeout for daemon-to-daemon object transfers"),
+    _f("RTPU_STORE_RETRY_S", 15.0,
+       "StoreClient reconnect budget after a store daemon connection "
+       "drops; StoreDiedError surfaces only past it (the node "
+       "supervisor restarts a crashed daemon well inside this window)"),
+    # -- control plane caps / cadences --------------------------------------
+    _f("RTPU_HEARTBEAT_INTERVAL_S", 0.25,
+       "Scheduler heartbeat/reconcile period with live peers (single-"
+       "node clusters tick at twice this)"),
+    _i("RTPU_TEV_OUTBOX_CAP", 4096,
+       "Staged terminal task events awaiting the batched GCS flush; "
+       "overflow is counted and reported as a DROPPED marker event"),
+    _i("RTPU_RAYLET_EVENT_CAP", 50000,
+       "Native raylet task-event ring size (drained into the Python "
+       "event table each heartbeat)"),
+    _i("RTPU_GCS_RING_CAP", 16384,
+       "GCS pubsub event ring size (subscribers falling further behind "
+       "get a gap signal and re-read table state)"),
+    _f("RTPU_GCS_SNAPSHOT_DEBOUNCE_S", 0.2,
+       "Debounce between a GCS table mutation and the snapshot write"),
+    _i("RTPU_GCS_TASK_EVENT_CAP", 1 << 16,
+       "Cluster-wide GCS task-event ring size"),
+    _i("RTPU_GCS_MAX_DEAD_WORKERS", 4096,
+       "DEAD worker records kept in the GCS worker table before the "
+       "oldest are evicted"),
+    _f("RTPU_GCS_TEV_PERSIST_S", 5.0,
+       "Min seconds between snapshot writes triggered purely by task-"
+       "event appends (telemetry must not rewrite the snapshot at "
+       "heartbeat rate)"),
+    _i("RTPU_MAX_SPILLS", 4,
+       "Max node-to-node forwarding hops per task before it settles "
+       "where it is (prevents spillback ping-pong)"),
+    _f("RTPU_SPILL_THRESHOLD", 0.5,
+       "Queue-time spillback trigger: local node utilization (max over "
+       "resources of used/total, >1 when backlogged) at or above which a "
+       "newly submitted task is scored against the cached cluster view "
+       "instead of queueing locally (reference hybrid policy "
+       "spread_threshold)"),
+    _i("RTPU_SPILL_TOP_K", 4,
+       "Queue-time spillback fan-out: when every feasible node is past "
+       "the threshold, the hybrid policy picks deterministically (keyed "
+       "by task id) among the k least-utilized candidates so concurrent "
+       "submitters spread instead of dogpiling one node"),
+    _i("RTPU_GET_CHUNK_MS", 500,
+       "Blocking-get wait slice (keeps Ctrl-C responsive)"),
+    _f("RTPU_BLOCK_GRACE_S", 0.005,
+       "Grace before a blocking wait sends the scheduler a blocked "
+       "notification (sub-ms replies skip the round trip)"),
+    _i("RTPU_LINEAGE_MAX_BYTES", 64 << 20,
+       "Owner-side lineage cache cap; oldest specs evicted past it"),
+    _i("RTPU_DIRECT_DONE_BYTES_CAP", 32 << 20,
+       "Per-actor-server completed-call payload cache for exactly-once "
+       "direct-call resend dedup"),
+    _i("RTPU_STORE_CAPACITY", 1 << 31,
+       "Default object store capacity when object_store_memory is not "
+       "passed (clamped to half of free /dev/shm)"),
+    _i("RTPU_PG_CREATE_RETRIES", 8,
+       "Assignment retries (excluding refusing nodes) for one placement-"
+       "group creation before it fails"),
+    _f("RTPU_SCALE_STALL_S", 30.0,
+       "scale_bench: seconds without progress before a scenario fails "
+       "loudly instead of spinning"),
+    _s("RTPU_SANITIZE", "",
+       "Build native components instrumented: 'address' (or legacy '1') "
+       "= ASan+UBSan, 'thread' = TSan.  Separate build-cache namespace "
+       "per mode; extension modules additionally need the matching "
+       "runtime preloaded — use `make sanitize` / `make sanitize-store`"),
+    _b("RTPU_NATIVE_TRANSFER", True,
+       "Cross-node object movement rides the store daemons' TCP data "
+       "plane (shm_store.cc OP_PULL/OP_PUSH, direct segment-to-segment "
+       "streaming); off = framed Python chunk transfer"),
+    _b("RTPU_ALLOW_SIM_WORKERS", False,
+       "Scale-harness mode: the scheduler accepts externally-registered "
+       "lightweight workers (sim_workers.py fleet) for control-plane "
+       "benchmarks"),
+    _i("RTPU_INLINE_GET_MAX", 64 * 1024,
+       "Store gets at or below this return inline bytes (one round trip, "
+       "no pin); larger gets return a pinned zero-copy view in the same "
+       "round trip (ST_VIEW)"),
+    _i("RTPU_MEMSTORE_ENTRIES", 65536,
+       "In-process memory store entry cap (direct-call results)"),
+    _i("RTPU_MEMSTORE_BYTES", 256 << 20,
+       "In-process memory store byte cap"),
+    _i("RTPU_MAX_RECONSTRUCTIONS", 3,
+       "Lineage re-executions attempted per lost object"),
+    _i("RTPU_TASK_EVENTS_CAP", 20000,
+       "Scheduler task-event log size (state API / timeline)"),
+    _f("RTPU_MEMORY_MONITOR_THRESHOLD", 0.95,
+       "Node memory fraction above which the scheduler kills a worker "
+       "(retriable-FIFO policy); 0 disables the monitor"),
+    _s("RAY_TPU_NUM_GPUS", "",
+       "Override the detected GPU count for this node"),
+    # -- observability ------------------------------------------------------
+    _b("RTPU_LOG_TO_DRIVER", True,
+       "Stream worker stdout/stderr lines to the driver"),
+    _b("RTPU_DISABLE_DASHBOARD", False,
+       "Do not start the dashboard HTTP server on the head"),
+    _f("RTPU_METRICS_FLUSH_S", 2.0,
+       "Interval between metric/span snapshot pushes to the node "
+       "scheduler (util.metrics / util.tracing background flushers)"),
+    _i("RTPU_TRACE_CAP", 512,
+       "Distributed traces retained per node scheduler (oldest evicted); "
+       "spans per trace are capped at 10000"),
+    _f("RTPU_TRACE_SAMPLE", 1.0,
+       "Per-request head-sampling probability for serving trace roots "
+       "(OpenAI server / P/D router): 1.0 traces every request, 0 "
+       "disables serving traces; children of a sampled root always "
+       "inherit, so each kept request is traced end to end"),
+    _f("RTPU_PROFILE_HZ", 10.0,
+       "Always-on sampling-profiler rate (samples/s) in every worker and "
+       "driver; 0 disables continuous profiling (on-demand captures via "
+       "`rtpu profile --record` still work)"),
+    _i("RTPU_PROFILE_CAP", 64,
+       "Profiles retained per node scheduler (oldest evicted); distinct "
+       "folded stacks per profile are capped at 20000"),
+    _f("RTPU_PROFILE_FLUSH_S", 5.0,
+       "Interval between continuous-profile pushes to the node scheduler "
+       "(_private/profiling.py sampler -> profiles_push)"),
+    _i("RTPU_GOODPUT_CAP", 128,
+       "Goodput/step-anatomy records retained per node scheduler "
+       "(keyed by run+source, oldest evicted)"),
+    _f("RTPU_GOODPUT_FLUSH_S", 5.0,
+       "Min seconds between a GoodputTracker's mid-run pushes to the "
+       "node scheduler (goodput_push lane; close() always pushes)"),
+    _f("RTPU_GOODPUT_PEAK_TFLOPS", 197.0,
+       "Per-chip peak TFLOP/s used as the MFU denominator (default: "
+       "v5e bf16 peak, matching bench.py's mfu_vs_v5e_peak)"),
+    _i("RTPU_GOODPUT_WARMUP", 1,
+       "Steps excluded from steady-state throughput/MFU accounting "
+       "(step 0 pays compile/dispatch warmup)"),
+    _b("RTPU_RECORD_REF_CREATION_SITES", True,
+       "Stamp every ObjectRef-creating site (.remote(), put, "
+       "deserialization) with its user-code file:line + executing "
+       "task/trace; one frame walk per ref, cheap enough to stay on "
+       "(0 records refs without call sites)"),
+    _f("RTPU_REFS_FLUSH_S", 5.0,
+       "Interval between reference-table snapshot pushes from each "
+       "worker/driver to the node scheduler (refs_push lane)"),
+    _i("RTPU_REFS_CAP", 256,
+       "Per-process reference-table snapshots retained per node "
+       "scheduler (keyed by process, oldest evicted)"),
+    _f("RTPU_LEAK_AGE_S", 300.0,
+       "Leak-detector age threshold: a store-resident object older than "
+       "this with no recent access is flagged as an age outlier"),
+    _i("RTPU_AUDIT_MAX_ROWS", 10000,
+       "Per-object rows returned by a store audit (rows beyond the cap "
+       "are counted in objects_dropped, never silently lost)"),
+    _i("RTPU_LOG_RING_CAP", 2048,
+       "Task-attributed worker-log lines retained per node scheduler "
+       "for `rtpu logs` (oldest evicted)"),
+    _i("RTPU_EVENTS_CAP", 2048,
+       "Cluster-plane events retained per node scheduler AND in the "
+       "head's merged incident ring (oldest evicted)"),
+    _f("RTPU_TSDB_SAMPLE_S", 1.0,
+       "Head sampling cadence for the in-memory metrics history ring "
+       "(dashboard MetricsSampler polls every node's metrics_snapshot "
+       "and evaluates SLO rules each tick); 0 disables the TSDB/SLO "
+       "plane entirely"),
+    _i("RTPU_TSDB_CAP", 512,
+       "Points retained per TSDB series (ring buffer; at the default "
+       "1s cadence this is ~8.5 minutes of history per series)"),
+    _i("RTPU_TSDB_MAX_SERIES", 2048,
+       "Series retained in the head TSDB (least-recently-updated "
+       "evicted past the cap — bounds head memory under tag churn)"),
+    _s("RTPU_SLO_RULES", "",
+       "Extra SLO rules, semicolon-separated (e.g. 'ttft: "
+       "p90(llm_ttft_s, 5m) < 1.5'); a rule named like a default "
+       "replaces it (_private/slo.py)"),
+    _s("RTPU_DEBUG_SCHED", "",
+       "Append scheduler event traces to this file"),
+    _s("RTPU_EXPORT_EVENTS", "",
+       "Directory for structured JSONL event export (actor/node/task "
+       "lifecycle records for external consumers); empty disables"),
+    _b("RAY_TPU_USAGE_STATS_DISABLED", False,
+       "Disable local usage-stats recording"),
+    _s("RAY_TPU_STORAGE_PATH", "",
+       "Default checkpoint/result storage root for Train/Tune runs"),
+    _s("RTPU_PIP_ARGS", "",
+       "Extra pip args for runtime_env pip installs (e.g. '--no-index "
+       "--find-links /wheels' on air-gapped pods)"),
+    _b("RTPU_NATIVE_TRANSPORT", True,
+       "Use the C++ direct-call transport (_rtpu_core); chaos mode "
+       "forces the Python path regardless"),
+    _b("RTPU_NATIVE_RAYLET", True,
+       "Run plain-task dispatch + the node resource ledger in the C++ "
+       "raylet (core_worker.cc RayletCore); 0 keeps the Python path"),
+    # -- data service (disaggregated input-data tier) -----------------------
+    _i("RTPU_DATA_CACHE_BYTES", 256 << 20,
+       "First-epoch cache budget per data-service job: epoch-0 output "
+       "blocks are pinned in the object store up to this many bytes so "
+       "later epochs (and co-trainers) skip the preprocessing pass; "
+       "chunks past the budget are recomputed on demand"),
+    _f("RTPU_DATA_LEASE_S", 30.0,
+       "Data-service lease TTL: consumers silent past it are detached "
+       "(their split's backpressure budget is released) and worker chunk "
+       "leases outstanding past it are reassigned to a live worker"),
+    _i("RTPU_DATA_WORKERS_MIN", 1,
+       "Default per-job floor of the data-service elastic worker pool "
+       "(register(..., min_workers=) overrides per job)"),
+    _i("RTPU_DATA_WORKERS_MAX", 4,
+       "Default per-job ceiling of the data-service elastic worker pool "
+       "(register(..., max_workers=) overrides per job)"),
+    # -- serving / request router -------------------------------------------
+    _b("RTPU_PREFIX_CACHE", True,
+       "LLM engine prefix caching: finished/preempted sequences leave "
+       "their full KV pages resident (refcounted, LRU-reclaimed) so "
+       "prompts sharing a page-aligned prefix skip recomputing it"),
+    _i("RTPU_ROUTER_PREFIX_CAP", 4096,
+       "Prefix-aware router: max nodes in the approximate prefix tree "
+       "(global LRU eviction past it)"),
+    _i("RTPU_ROUTER_PREFIX_BLOCK", 32,
+       "Prefix-aware router: chars per prefix-tree level (hints are "
+       "keyed at multiples of this block)"),
+    _f("RTPU_ROUTER_IMBALANCE", 4.0,
+       "Prefix-aware router: load gap (vs the least-loaded replica) "
+       "past which a prefix-affinity match is abandoned for pow-2 — "
+       "the cache-locality vs load-balance escape hatch"),
+    _f("RTPU_ROUTER_STALE_S", 5.0,
+       "Routers ignore replica stats samples older than this (a stale "
+       "queue depth pins traffic to a replica that drained already)"),
+    _f("RTPU_ROUTER_STATS_S", 0.5,
+       "Controller cadence for polling ReplicaActor.router_stats and "
+       "publishing routing snapshots to the GCS KV (the stats lane "
+       "handles piggyback off get_replicas)"),
+    _i("RTPU_PREFIX_DIGESTS", 16,
+       "Resident-digest advertisement cap: how many most-recent prefix-"
+       "cache block digests engine.stats() exposes for the router's "
+       "exact-digest KV-locality match (pools hotter than the cap "
+       "degrade the router to its approximate n-gram tree)"),
+    _f("RTPU_ADMIT_AGE_CAP_S", 0.25,
+       "Hit-aware admission fairness bound: under pool pressure the "
+       "engine admits resident-prefix hits ahead of the queue head, but "
+       "never once the head has waited this many seconds"),
+    _b("RTPU_KV_TIER", True,
+       "Store-backed KV page tier: engines seal hot prefix-family spines "
+       "into the shm object store (digest-addressed) and pull them back "
+       "on imbalance sheds, P/D handoffs, warm restarts, and replica "
+       "failover instead of cold-prefilling"),
+    _i("RTPU_KV_REPLICAS", 2,
+       "KV tier replication factor: the controller pushes each of the "
+       "hottest sealed families onto this many replicas' engines (via "
+       "kv_prehydrate) so one replica death never loses a hot family"),
+    _i("RTPU_KV_SEAL_MIN_HITS", 2,
+       "KV tier seal heat gate: a prefix family must have at least this "
+       "many cache hits before its spine is sealed into the store "
+       "(P/D prefill handoff seals unconditionally)"),
+    _b("RTPU_DEBUG_ALLOCATOR", False,
+       "Assert the page-state partition invariant (every page exactly "
+       "one of free/refcounted/cached-resident) after every PageAllocator "
+       "op — O(num_pages) per op, test and chaos runs only"),
+    # -- testing / chaos ----------------------------------------------------
+    _s("RTPU_TESTING_DATA_FAILURE", "",
+       "Data-service chaos: '<kill%>' — each chunk execution _exit(1)s "
+       "the data worker with kill% probability, exercising mid-epoch "
+       "failover (chunk reassignment + pool respawn)"),
+    _s("RTPU_TESTING_RPC_FAILURE", "",
+       "RPC chaos: '<send%>:<recv%>' global and/or "
+       "'<method>=<max>:<req%>:<resp%>' scoped entries, comma-separated"),
+    _s("RTPU_TESTING_RPC_SEED", "",
+       "Deterministic seed for RPC chaos injection"),
+    _s("RTPU_TESTING_STORE_FAILURE", "",
+       "Store chaos: '<drop%>:<kill%>' — per request the daemon drops "
+       "the client connection with drop% probability or _exit(1)s with "
+       "kill% probability, exercising StoreClient reconnect and node-"
+       "supervised daemon restart"),
+    _s("RTPU_TESTING_STORE_SEED", "",
+       "Deterministic seed for store chaos injection"),
+    _s("RTPU_TESTING_REPLICA_FAILURE", "",
+       "Serve replica chaos: '<kill%>' — each incoming handle_request "
+       "_exit(1)s the replica process with kill% probability, exercising "
+       "controller replacement, handle failover, router corpse purge, "
+       "and KV-tier pull-not-prefill recovery"),
+    # -- (internal) process wiring, set by the runtime itself ---------------
+    _s("RAY_TPU_WORKER_ID", "", "(internal) worker process identity"),
+    _s("RAY_TPU_NODE_ID", "", "(internal) owning node of this process"),
+    _s("RTPU_TASK_ATTR_PATH", "",
+       "(internal) per-worker sidecar file mirroring the executing task "
+       "(written by the note_task bracket, read by the log monitor)"),
+]
+
+FLAGS: dict[str, FlagSpec] = {s.name: s for s in _SPECS}
+
+# Flags a head publishes to the GCS for joining nodes to adopt.  Identity
+# and per-process internals stay host-local.
+_NO_PROPAGATE = {
+    "RTPU_GCS_ADDRESS", "RAY_TPU_WORKER_ID", "RAY_TPU_NODE_ID",
+    "RAY_TPU_ADDRESS", "RTPU_LISTEN_HOST", "RAY_TPU_NUM_GPUS",
+    "RTPU_GCS_PERSIST", "RTPU_DEBUG_SCHED", "RTPU_TASK_ATTR_PATH",
+}
+
+_FALSY = {"", "0", "false", "no", "off"}
+
+
+def _coerce(spec: FlagSpec, raw: str) -> Any:
+    if spec.type is bool:
+        return raw.strip().lower() not in _FALSY
+    if spec.type is int:
+        try:
+            return int(raw)
+        except ValueError:
+            return spec.default
+    if spec.type is float:
+        try:
+            return float(raw)
+        except ValueError:
+            return spec.default
+    return raw
+
+
+def get(name: str) -> Any:
+    """Typed read of one registered flag (current environment)."""
+    spec = FLAGS[name]
+    raw = os.environ.get(name)
+    if raw is None:
+        return spec.default
+    return _coerce(spec, raw)
+
+
+def effective() -> dict[str, Any]:
+    """The full resolved config: every flag's current value."""
+    return {name: get(name) for name in FLAGS}
+
+
+def explicit() -> dict[str, str]:
+    """Flags explicitly set in this environment and safe to propagate
+    cluster-wide (raw string form, ready for a child environment)."""
+    return {name: os.environ[name] for name in FLAGS
+            if name in os.environ and name not in _NO_PROPAGATE}
+
+
+def describe() -> list[dict]:
+    """Table for `rtpu status` / docs: name, value, default, doc."""
+    return [{
+        "name": s.name,
+        "value": get(s.name),
+        "default": s.default,
+        "set": s.name in os.environ,
+        "doc": s.doc,
+    } for s in _SPECS]

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable
 
@@ -26,6 +27,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+# The nvcc builds this process ran, and their wall seconds: what the
+# runtime's device telemetry reports as the port's compile counters.
+_build_lock = threading.Lock()
+_builds = {"count": 0, "seconds": 0.0}
+
+
+def build_stats() -> Dict[str, float]:
+    """``{"count": n, "seconds": s}``: the libraries this process compiled
+    (one per ``nvcc``) and the wall seconds from their start to the end of
+    each.  A library found already built counts nothing."""
+    with _build_lock:
+        return dict(_builds)
 
 
 def _nvcc() -> str:
@@ -59,6 +73,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     procs = {}
+    t0 = time.monotonic()
     for name, so in paths.items():
         if so.exists():
             continue
@@ -75,6 +90,9 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, so)  # atomic: a concurrent builder sees all or none
+        with _build_lock:
+            _builds["count"] += 1
+            _builds["seconds"] += time.monotonic() - t0
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return paths

@@ -1,11 +1,12 @@
 """Application metrics: Counter / Gauge / Histogram.
 
 Counterpart of ``ray_tpu/util/metrics.py``.  Every process keeps one local
-registry; ``snapshot()`` reads it (one dict per metric, the same shape the
-JAX package pushes to its node scheduler).  Tag semantics as there:
-declared ``tag_keys``, default tags, per-call overrides.  The background
-flusher stays in the JAX package: it pushes to the runtime's node
-scheduler, which the port does not have.
+registry; ``snapshot()`` reads it (one dict per metric).  Under the port's
+runtime a background flusher pushes that snapshot over the node
+scheduler's control socket (``metrics_push``) every
+``RTPU_METRICS_FLUSH_S``, and the scheduler aggregates it per node
+(``metrics_snapshot``).  Tag semantics as in the JAX package: declared
+``tag_keys``, default tags, per-call overrides.
 """
 
 from __future__ import annotations
@@ -17,6 +18,79 @@ from ray_tpu_torch.util import tracing
 
 _registry_lock = threading.Lock()
 _registry: List["Metric"] = []
+_flusher_started = False
+_flush_stop = threading.Event()
+_flush_gen = 0
+
+
+def _flush_interval() -> float:
+    from ray_tpu_torch._private import flags
+
+    return max(0.25, float(flags.get("RTPU_METRICS_FLUSH_S")))
+
+
+def _ensure_flusher():
+    global _flusher_started, _flush_gen
+    with _registry_lock:
+        if _flusher_started:
+            return
+        _flusher_started = True
+        _flush_gen += 1
+        gen = _flush_gen
+        _flush_stop.clear()
+    threading.Thread(target=_flush_loop, args=(gen,), name="metrics-flush",
+                     daemon=True).start()
+
+
+def _flush_loop(gen: int):
+    global _flusher_started
+    while True:
+        stopped = _flush_stop.wait(_flush_interval())
+        with _registry_lock:
+            if gen != _flush_gen:
+                return  # superseded by a newer flusher
+            if stopped:
+                _flusher_started = False
+                return  # clean exit on shutdown_flusher()
+        _flush_once()
+
+
+def _flush_once():
+    from ray_tpu_torch._private import worker as worker_mod
+
+    ctx = worker_mod.global_worker_or_none()
+    if ctx is None:
+        return  # no runtime in this process (yet/anymore)
+    snap = snapshot()
+    if not snap:
+        return
+    try:
+        ctx.rpc("metrics_push", {
+            "source": ctx.worker_id or b"driver",
+            "metrics": snap,
+        })
+    except Exception:
+        pass  # node shutting down; metrics are best-effort
+
+
+def shutdown_flusher(flush: bool = False):
+    """Stop the background flusher, optionally pushing one final snapshot
+    first."""
+    if flush:
+        try:
+            _flush_once()
+        except Exception:
+            pass
+    _flush_stop.set()
+
+
+def resume_flusher():
+    """Restart the flusher after a shutdown when metrics already exist
+    (a fresh ``init()`` in the same process re-uses the registry)."""
+    with _registry_lock:
+        empty = not _registry
+    if not empty:
+        _ensure_flusher()
 
 
 def snapshot() -> List[dict]:
@@ -40,6 +114,7 @@ class Metric:
         self._lock = threading.Lock()
         with _registry_lock:
             _registry.append(self)
+        _ensure_flusher()
 
     def set_default_tags(self, tags: Dict[str, str]) -> "Metric":
         bad = set(tags) - set(self._tag_keys)
@@ -59,6 +134,20 @@ class Metric:
                     f"{self._tag_keys}")
             merged.update(tags)
         return tuple(merged.get(k, "") for k in self._tag_keys)
+
+    def clear(self) -> None:
+        """Drop every recorded series (tag values and histogram state)."""
+        with self._lock:
+            self._values.clear()
+            hist = getattr(self, "_hist", None)
+            if hist is not None:
+                hist.clear()
+
+    @property
+    def info(self) -> dict:
+        return {"name": self._name, "description": self._description,
+                "tag_keys": self._tag_keys,
+                "default_tags": dict(self._default_tags)}
 
     def _snapshot(self) -> dict:
         with self._lock:
@@ -139,6 +228,11 @@ class Histogram(Metric):
             h[-1] += value
             if exemplar:
                 self._exemplars.setdefault(key, {})[bucket] = str(exemplar)
+
+    def clear(self) -> None:
+        super().clear()
+        with self._lock:
+            self._exemplars.clear()
 
     def _snapshot(self) -> dict:
         with self._lock:

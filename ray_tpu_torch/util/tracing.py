@@ -1,4 +1,4 @@
-"""Trace spans for the serving stack: propagation, collection, assembly.
+"""Trace spans: propagation, collection, assembly, and the runtime's flush.
 
 Counterpart of ``ray_tpu/util/tracing/__init__.py``.  A trace context
 (``trace_id``, parent ``span_id``) lives in thread-local state: a serving
@@ -7,12 +7,13 @@ parent under it, and work handed across threads re-establishes the
 captured context (``use_context``) or stamps spans with an explicit one
 (``record_span``, the engine's scheduler thread).
 
-Every span carrying a trace id is buffered; ``take_spans()`` drains the
-buffer (the JAX package's flusher pushes it to the runtime's node
-scheduler instead, which the port does not have) and ``assemble_trace``
-builds one tree per trace with its critical path.  The chrome export draws
-cross-process flow arrows.  Task-execution spans belong to the runtime and
-stay in the JAX package.
+Under the port's runtime a context also rides each ``TaskSpec``
+(``attach_trace`` at submission, ``begin_task_span`` / ``end_task_span``
+around execution in the worker), and a background flusher pushes every
+span carrying a trace id to the node scheduler (``spans_push``).  Outside
+a runtime the spans stay buffered until ``take_spans()`` drains them, and
+``assemble_trace`` builds one tree per trace with its critical path.  The
+chrome export draws cross-process flow arrows.
 """
 
 from __future__ import annotations
@@ -29,12 +30,17 @@ _spans: List[Dict[str, Any]] = []
 _lock = threading.Lock()
 _enabled = False
 
-# Spans carrying a trace id queue here until take_spans() drains them.
-# Bounded: tracing is observability, not ground truth.
+# Spans carrying a trace id queue here until the flusher pushes them to
+# the node scheduler ("spans_push") or take_spans() drains them.  Bounded:
+# tracing is observability, not ground truth.
 _remote_buf: List[Dict[str, Any]] = []
 _REMOTE_BUF_CAP = 50_000
 
 _tls = threading.local()
+
+_flusher_started = False
+_flush_stop = threading.Event()
+_flush_gen = 0
 
 
 def enable_tracing() -> None:
@@ -101,6 +107,8 @@ def _record(rec: Dict[str, Any]) -> None:
         })
         if rec.get("trace_id") and len(_remote_buf) < _REMOTE_BUF_CAP:
             _remote_buf.append(rec)
+    if rec.get("trace_id") and _runtime_context() is not None:
+        _ensure_flusher()
 
 
 def _user_span(trace_id: str, span_id: str, parent_id: Optional[str],
@@ -211,6 +219,156 @@ def record_span(trace_id: str, name: str, start_ts: float, end_ts: float, *,
         "args": dict(attrs or {}),
     })
     return sid
+
+
+def attach_trace(spec) -> None:
+    """Stamp a submission-side trace context onto a TaskSpec.
+
+    Inside an active span (a driver ``trace_span`` block or a traced
+    task's execution) the spec inherits that context; otherwise, when
+    tracing is enabled in this process, each ``.remote()`` mints a fresh
+    root trace.  The stamped fields pickle through every submission lane.
+    """
+    ctx = getattr(_tls, "ctx", None)
+    if ctx is None:
+        if not _enabled:
+            return
+        ctx = (new_trace_id(), None)
+    spec.trace_id, spec.parent_span_id = ctx
+    spec.trace_submit_ts = time.time()
+
+
+# ---------------------------------------------------------------------------
+# built-in task-execution spans (the runtime's worker_main drives these)
+
+def begin_task_span(spec, start_ts: Optional[float] = None) -> Optional[dict]:
+    """Open the built-in execution span for a traced TaskSpec: establishes
+    the thread's trace context (so nested submissions parent here) and
+    returns a token for :func:`end_task_span`.  None for untraced specs."""
+    trace_id = getattr(spec, "trace_id", None)
+    if not trace_id:
+        return None
+    token = {
+        "trace_id": trace_id, "span_id": new_span_id(),
+        "parent_id": getattr(spec, "parent_span_id", None),
+        "name": spec.name or (spec.method_name or spec.kind),
+        "kind": spec.kind, "pid": os.getpid(),
+        "submit_ts": getattr(spec, "trace_submit_ts", 0.0) or None,
+        "start_ts": start_ts if start_ts is not None else time.time(),
+        "arg_fetch_s": 0.0,
+        "prev_ctx": getattr(_tls, "ctx", None),
+        "prev_token": getattr(_tls, "task_token", None),
+    }
+    _tls.ctx = (trace_id, token["span_id"])
+    _tls.task_token = token
+    return token
+
+
+def note_arg_fetch(seconds: float) -> None:
+    """Charge dependency-resolution time to the current task span."""
+    token = getattr(_tls, "task_token", None)
+    if token is not None:
+        token["arg_fetch_s"] += seconds
+
+
+def end_task_span(token: Optional[dict], ok: bool = True,
+                  flush: bool = True) -> None:
+    """Close a task-execution span, restore the previous context, and (by
+    default) flush pending spans to the node scheduler right away so the
+    trace is queryable as soon as the task finishes."""
+    if token is None:
+        return
+    _tls.ctx = token.pop("prev_ctx")
+    _tls.task_token = token.pop("prev_token")
+    end_ts = time.time()
+    start_ts = token.pop("start_ts")
+    submit_ts = token.pop("submit_ts")
+    arg_fetch = token.pop("arg_fetch_s")
+    queue_wait = max(0.0, start_ts - submit_ts) if submit_ts else 0.0
+    _record(dict(token, submit_ts=submit_ts, start_ts=start_ts,
+                 end_ts=end_ts, ok=ok,
+                 queue_wait_s=queue_wait, arg_fetch_s=arg_fetch,
+                 run_s=max(0.0, (end_ts - start_ts) - arg_fetch),
+                 args={}))
+    if flush:
+        flush_spans()
+
+
+# ---------------------------------------------------------------------------
+# flush plane: spans -> node scheduler ("spans_push", like metrics_push)
+
+def _runtime_context():
+    from ray_tpu_torch._private import worker as worker_mod
+
+    return worker_mod.global_worker_or_none()
+
+
+def flush_spans() -> int:
+    """Push queued spans to the node scheduler; returns how many landed.
+    Without a runtime in this process nothing is taken, so ``take_spans``
+    still sees every span.  Best-effort: on failure the batch re-queues
+    for the next attempt."""
+    ctx = _runtime_context()
+    if ctx is None:
+        return 0
+    with _lock:
+        if not _remote_buf:
+            return 0
+        batch = list(_remote_buf)
+        del _remote_buf[:]
+    try:
+        ctx.rpc("spans_push", {"spans": batch})
+        return len(batch)
+    except Exception:
+        with _lock:
+            _remote_buf[:0] = batch[:_REMOTE_BUF_CAP - len(_remote_buf)]
+        return 0
+
+
+def _flush_interval() -> float:
+    from ray_tpu_torch._private import flags
+
+    return max(0.25, float(flags.get("RTPU_METRICS_FLUSH_S")))
+
+
+def _ensure_flusher() -> None:
+    global _flusher_started, _flush_gen
+    with _lock:
+        if _flusher_started:
+            return
+        _flusher_started = True
+        _flush_gen += 1
+        gen = _flush_gen
+        _flush_stop.clear()
+    threading.Thread(target=_flush_loop, args=(gen,), name="trace-flush",
+                     daemon=True).start()
+
+
+def _flush_loop(gen: int) -> None:
+    global _flusher_started
+    while True:
+        stopped = _flush_stop.wait(_flush_interval())
+        with _lock:
+            if gen != _flush_gen:
+                return  # superseded by a newer flusher
+            if stopped:
+                _flusher_started = False
+                return
+        try:
+            flush_spans()
+        except Exception:
+            pass
+
+
+def shutdown_flusher(flush: bool = False) -> None:
+    """Stop the background span flusher (clean worker/driver shutdown);
+    optionally pushing one final batch first."""
+    if flush:
+        try:
+            flush_spans()
+        except Exception:
+            pass
+    _flush_stop.set()
 
 
 def take_spans() -> List[Dict[str, Any]]:
