@@ -72,6 +72,26 @@ Phases, each fatal on failure:
      ``lm.prefill``; each rung's req/s, TTFT, evictions
      and hit rate, the reference's acceptance as computed here, and the
      device-busy share of a profiled rerun of the top prefix-aware cell;
+ 8b. the serve runtime on the card (``run_serve``): the port's runtime
+     with the card as ``"GPU": 1``; (a) ``build_openai_app`` at the
+     serving width with two ``LLMServer`` replicas at ``num_gpus`` 0.5,
+     each its own process holding the card (device-memory gauge over its
+     weights' bytes, 0 kernel builds), the controller and the HTTP proxy
+     without CUDA, ``run_engine``'s 3 unloaded requests giving its ids bit
+     for bit on each replica; (b) ``run_engine``'s 19-request mix through
+     the HTTP proxy, whole and as SSE streams: every request full, both
+     replicas serving, the forward kernel launched in each replica's
+     process (read there), its output tok/s beside ``run_engine``'s and
+     ``run_frontends``' server rate, TTFT p50 / p90, each replica's share
+     and device-busy share; (c) ``serve_bench``'s kill-rung traffic, 48
+     requests at concurrency 8 through the ingress, the replica holding the
+     most families killed after 45%: every request completes, the
+     controller reports the death and a replacement holds the card, the
+     killed process exits, and the store tier pulls (recovery s, extra
+     prefill tokens); (d) ``build_pd_openai_app``, one prefill and one
+     decode replica: the handoff through the store tier between the two
+     processes, the decode replica pulling, ids equal to a single engine's
+     pulling the same spines (prefill and decode call ms, the pull's ms);
   9. the trainer at full width (``bench.py``'s GPT-2 124M train step, batch
      12, seq 1024): the first step's loss and grad norm through the kernels
      agree with the plain attention's, the loss falls on a repeated batch,
@@ -2290,6 +2310,771 @@ def run_serve_bench(report):
     return launches
 
 
+# The serve runtime at the serving width (``run_serve``): the port's own
+# runtime with the card (``"GPU": 1``), ``build_openai_app`` with two
+# ``LLMServer`` replicas at ``num_gpus`` 0.5 each (the scheduler grants
+# ``CUDA_VISIBLE_DEVICES`` only for whole GPUs, so a half-GPU replica sees
+# the node's card as ``cuda:0``), each holding its engine in its own
+# process behind the controller, the ``OpenAIRouter`` ingress and the HTTP
+# proxy; then ``build_pd_openai_app`` with one prefill and one decode
+# replica.  Kernel launches are read in each replica's own process.
+SERVE_APP = "serving"
+SERVE_MODEL_ID = "serving-768"
+SERVE_TIMEOUT_S = 300
+SERVE_START_S = 240  # serve.run's wait for the replicas to be RUNNING
+SERVE_KILL = {"requests": 48, "concurrency": 8, "families": 6,
+              "kill_frac": 0.45}  # serve_bench's kill rung, cut to 48
+PD_MAX_TOKENS = 16
+
+
+def serve_model_loader():
+    """``serving_engine``'s model, in a replica's process: ``bench.py``'s
+    serving width at random weights from seed 0, on the card."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.LlamaConfig(
+        vocab_size=32_000, d_model=768, n_layers=12, n_heads=12,
+        n_kv_heads=12, d_ff=3072, max_seq_len=1024, remat=False)
+    return llama.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda"), cfg
+
+
+def serve_llm_config(model_id=SERVE_MODEL_ID, replicas=2,
+                     default_max_tokens=64):
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig
+
+    return LLMConfig(
+        model_id=model_id, model_loader=serve_model_loader,
+        engine_config=EngineConfig(max_slots=16, num_pages=512,
+                                   page_size=16, max_seq_len=1024),
+        default_max_tokens=default_max_tokens, num_replicas=replicas,
+        ray_actor_options={"num_gpus": 0.5})
+
+
+# Functions run inside a replica's process through ``__rtpu_apply__``;
+# ``inst`` is the ``ReplicaActor``, ``inst._user`` its deployment.
+
+
+def replica_launches(inst, reset=False):
+    """The forward kernel's launches in this process (then zeroed)."""
+    from ray_tpu_torch.ops import attention
+
+    n = attention.flash_forward.launches
+    if reset:
+        attention.flash_forward.launches = 0
+    return n
+
+
+def replica_identity(inst):
+    """The replica's pid, whether it holds a CUDA context, and the bytes
+    of its engine's weights."""
+    import torch
+
+    weights, devices = 0, set()
+    stack = [inst._user._engine.state]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, torch.Tensor):
+            weights += node.numel() * node.element_size()
+            devices.add(str(node.device))
+    return {"pid": os.getpid(), "cuda": torch.cuda.is_initialized(),
+            "devices": sorted(devices), "weight_bytes": weights,
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def process_cuda(inst):
+    """(pid, whether this process initialised CUDA) for a system actor."""
+    torch = sys.modules.get("torch")
+    return os.getpid(), bool(torch is not None
+                             and torch.cuda.is_initialized())
+
+
+def replica_generate(inst, prompt, kwargs):
+    return inst._user.generate_tokens(list(prompt), **kwargs)
+
+
+def replica_engine_stats(inst):
+    st = inst._user.engine_stats()
+    st["replica_total"] = inst._total
+    return st
+
+
+def replica_profile_open(inst):
+    """Open a device-activity profiler window on a thread of this process
+    (opened and closed on that thread); returns once it records."""
+    import threading
+
+    from ray_tpu_torch.ops import attention
+
+    started, stop, box = threading.Event(), threading.Event(), {}
+
+    def window():
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            box["launches"] = attention.flash_forward.launches
+            t0 = time.perf_counter()
+            started.set()
+            stop.wait(SERVE_TIMEOUT_S)
+            torch.cuda.synchronize()
+            box["window_ms"] = (time.perf_counter() - t0) * 1e3
+            box["launches"] = attention.flash_forward.launches - box[
+                "launches"]
+        box["rows"] = sorted(((e.key, e.self_device_time_total / 1e3,
+                               e.count) for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA),
+                             key=lambda r: -r[1])
+
+    t = threading.Thread(target=window, daemon=True)
+    t.start()
+    started.wait(SERVE_TIMEOUT_S)
+    inst.__dict__["_smoke_profile"] = (t, stop, box)
+    return os.getpid()
+
+
+def replica_profile_stop(inst):
+    """End the window's recording (its trace is read by
+    ``replica_profile_close``)."""
+    inst.__dict__["_smoke_profile"][1].set()
+
+
+def replica_profile_close(inst):
+    """The window's wall and busy ms, and whether it is whole (it holds
+    one forward-kernel event for every launch counted in it, and at
+    least one)."""
+    t, stop, box = inst.__dict__.pop("_smoke_profile")
+    t.join(SERVE_TIMEOUT_S)
+    rows = box.get("rows", [])
+    events = sum(c for k, _, c in rows if "flash_fwd_mma_kernel" in k)
+    return {"window_ms": box["window_ms"],
+            "busy_ms": sum(r[1] for r in rows),
+            "launches": box["launches"], "kernel_events": events,
+            "whole": events == box["launches"] > 0,
+            "top": [{"kernel": k[:60], "ms": ms, "count": c}
+                    for k, ms, c in rows[:4]]}
+
+
+def pd_reference(texts):
+    """(d)'s reference, in a task of the runtime: one engine of
+    ``run_engine``'s model and config over the node's store tier, which
+    pulls the spines the prefill replica sealed as the decode replica did,
+    and a cold engine without a tier (its ids are printed beside them);
+    each serves ``texts`` in order as the decode replica did."""
+    import torch
+
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import kv_tier as kt
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    state, cfg = serve_model_loader()
+    ecfg = serve_llm_config().engine_config
+    ref = {}
+    for key, tier in (("tier", kt.KVTier(
+            kt.WorkerStoreBackend(global_worker()),
+            kt.GcsDirectory(global_worker()))), ("cold", None)):
+        eng = LLMEngine(state, cfg, ecfg, kv_tier=tier)
+        eng.start()
+        try:
+            ref[key] = [eng.generate(tok.encode(t), SamplingParams(
+                max_tokens=PD_MAX_TOKENS, stop_token_ids=(tok.eos_id,)))
+                for t in texts]
+            ref[key + "_pulls"] = eng.stats()["kv_pulls"]
+        finally:
+            eng.stop()
+    torch.cuda.synchronize()
+    ref["pid"] = os.getpid()
+    return ref
+
+
+def pid_exited(pid: int) -> bool:
+    """The process is gone or a zombie awaiting its parent's reap."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def serve_mix_window(port, base, vocab, stream):
+    """``run_engine``'s 19-request mix through the HTTP proxy as
+    ``/v1/completions``, one client thread each, ``ignore_eos`` holding
+    each to its ``max_tokens``; ``base`` offsets the prompt seeds so that
+    every window starts cold.  The request sharing request 0's first 7
+    pages is sent once request 0 has its first token (streamed) or its
+    response (whole).  Returns each request's (tokens, finish reason,
+    TTFT s or None, stream s from its first to its last token or None),
+    and the window's wall seconds, first send to last byte."""
+    import threading
+
+    import requests
+
+    url = f"http://127.0.0.1:{port}/v1/completions"
+    bodies = [{"prompt": mix_prompt(base + seed, n, vocab), "max_tokens": m,
+               "temperature": temp, "seed": sseed}
+              for seed, n, m, temp, sseed in MIX]
+    of, n_of, seed, n, m = MIX_SHARED
+    bodies.append({"prompt": mix_prompt(base + of, 128, vocab)[:n_of]
+                   + mix_prompt(base + seed, n, vocab), "max_tokens": m})
+    first = threading.Event()
+    out = [None] * len(bodies)
+
+    def client(i):
+        row = (0, None, None, None)
+        try:
+            if i == len(bodies) - 1:
+                first.wait(SERVE_TIMEOUT_S)
+            body = dict(bodies[i], ignore_eos=True, stream=stream)
+            t0 = time.perf_counter()
+            with requests.post(url, json=body, timeout=SERVE_TIMEOUT_S,
+                               stream=stream) as r:
+                if not stream:
+                    got = r.json()
+                    row = (got["usage"]["completion_tokens"],
+                           got["choices"][0]["finish_reason"], None, None)
+                else:
+                    n_tok, reason, t_first, t_last = 0, None, None, None
+                    for line in r.iter_lines():
+                        if not line or line == b"data: [DONE]":
+                            continue
+                        choice = json.loads(line[len(b"data: "):])[
+                            "choices"][0]
+                        reason = choice["finish_reason"]
+                        if reason is None:
+                            n_tok += 1
+                            t_last = time.perf_counter()
+                            if t_first is None:
+                                t_first = t_last
+                                if i == 0:
+                                    first.set()
+                    row = (n_tok, reason,
+                           None if t_first is None else t_first - t0,
+                           None if t_first is None else t_last - t_first)
+        except Exception as e:  # noqa: BLE001 — reported as the reason
+            row = (0, repr(e), None, None)
+        finally:
+            if i == 0:
+                first.set()
+            out[i] = row
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_TIMEOUT_S)
+    wants = [m for _, _, m, _, _ in MIX] + [MIX_SHARED[-1]]
+    return out, time.monotonic() - t0, wants
+
+
+def run_serve(report):
+    """Phase 8b: the serve runtime on the card (after ``run_serve_bench``;
+    ``run_engine``'s ids and rate are the reference).  (a)
+    ``build_openai_app`` at the serving width with two replicas at
+    ``num_gpus`` 0.5: RUNNING, each replica's process holding the card
+    (its device-memory gauge in the scheduler's ``metrics_snapshot`` over
+    its weights' bytes, its pid not this script's, 0 kernel builds: it
+    loads phase 1's build), the proxy and the controller without CUDA,
+    and ``run_engine``'s 3 unloaded requests giving its ids bit for bit on
+    each replica and through the deployment's handle (the byte tokenizer's
+    text drops ids past 258, so the ids come from ``generate_tokens``;
+    the same requests through the ingress stream their full counts);
+    (b) the 19-request mix through the HTTP proxy, whole responses and
+    SSE streams: every request full, both replicas serving, the forward
+    kernel launched in each replica's process; its output tok/s beside
+    ``run_engine``'s and ``run_frontends``' server rate, TTFT, each
+    replica's share, and each replica's device-busy share over a rerun
+    (printed, not gated); (c) replica death with the KV tier on:
+    ``serve_bench``'s kill-rung traffic, 48 requests at concurrency 8
+    through the ingress, the replica holding the most families killed
+    after 45% complete: all complete without an error, the controller
+    reports the death and starts a replacement on the card, the killed
+    process exits, and the survivor or the replacement pulls from the
+    store tier; (d) ``build_pd_openai_app`` with one prefill and one
+    decode replica: 4 prompts (the first warms both replicas, untimed)
+    handed off through the store tier (``kv_in_tier``), the decode replica
+    pulling, ids equal to a single engine's (``run_engine``'s model) that
+    pulls the same spines from the same tier, bit for bit.  Returns the
+    forward kernel's launches in the replicas' processes."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p and p != HERE])
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import profiling
+    from ray_tpu_torch._private import serve_bench as sb
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.llm import build_openai_app, build_pd_openai_app
+    from ray_tpu_torch.llm.paged_cache import PrefixCache
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tele = profiling._DeviceTelemetry
+    vocab = 32_000
+    res, launches = {}, {}
+    card_pids = set()  # every process of the phase that held the card
+    t_phase = time.monotonic()
+
+    def call(actor, fn, *args):
+        return rt.get(actor.__rtpu_apply__.remote(fn, *args),
+                      timeout=SERVE_TIMEOUT_S)
+
+    def call_all(actors, fn):
+        """``fn`` in every actor's process at once."""
+        return rt.get([a.__rtpu_apply__.remote(fn) for a in actors],
+                      timeout=SERVE_TIMEOUT_S)
+
+    def replicas(app, deployment):
+        controller = rt.get_actor("SERVE_CONTROLLER")
+        return rt.get(controller.get_replicas.remote(app, deployment),
+                      timeout=SERVE_TIMEOUT_S)
+
+    def snapshot():
+        return global_worker().rpc("metrics_snapshot", {})
+
+    def on_card(reps, what):
+        """Each replica's identity, with its device-memory gauge and
+        kernel-build counter as its flusher pushed them (a replica's
+        first push may predate its model: wait for one that holds it)."""
+        rows = [call(r, replica_identity) for r in reps]
+
+        def holds(row):
+            return (row["gauge_in_use"] is not None
+                    and row["kernel_builds"] is not None
+                    and row["gauge_in_use"] > row["weight_bytes"] > 0)
+
+        deadline = time.monotonic() + 60
+        while True:
+            snap = snapshot()
+            for row in rows:
+                row["gauge_in_use"] = gauge_value(snap, tele.IN_USE,
+                                                  row["pid"], 0)
+                row["kernel_builds"] = gauge_value(snap, tele.BUILDS,
+                                                   row["pid"])
+            if all(holds(row) for row in rows) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        card_pids.update(row["pid"] for row in rows)
+        bad = [row for row in rows if not (
+            holds(row) and row["cuda"] and row["pid"] != os.getpid()
+            and row["devices"] == ["cuda:0"]
+            and row["kernel_builds"] == 0)]
+        if bad:
+            raise SystemExit(f"{what}: a replica does not hold the card as "
+                             f"it should: {bad}")
+        return rows
+
+    node = rt.init(num_cpus=8, object_store_memory=RUNTIME_STORE_BYTES)
+    try:
+        if rt.cluster_resources().get("GPU") != 1:
+            raise SystemExit("the node does not count the card as 1 GPU")
+        # (a) the application reaches RUNNING with both replicas on the card
+        t0 = time.monotonic()
+        serve.run(build_openai_app(serve_llm_config()), name=SERVE_APP,
+                  route_prefix="/", _blocking_timeout_s=SERVE_START_S)
+        running_s = time.monotonic() - t0
+        server_dep = f"LLMServer:{SERVE_MODEL_ID}"
+        reps = replicas(SERVE_APP, server_dep)["replicas"]
+        if len(reps) != 2:
+            raise SystemExit(f"{len(reps)} LLMServer replicas, not 2")
+        for r in reps:
+            call(r, replica_launches, True)
+        ident = on_card(reps, "(a)")
+        system = {name: call(rt.get_actor(name), process_cuda)
+                  for name in ("SERVE_CONTROLLER", "SERVE_PROXY")}
+        if any(cuda for _, cuda in system.values()):
+            raise SystemExit(f"a serve system actor initialised CUDA: "
+                             f"{system}")
+        server = serve.DeploymentHandle(SERVE_APP, server_dep)
+        ingress = serve.get_app_handle(SERVE_APP)
+        want = report["engine"]["unloaded_ids"]
+        through_handle = [server.generate_tokens.remote(
+            mix_prompt(seed, n, vocab), max_tokens=m).result(
+                timeout_s=SERVE_TIMEOUT_S) for seed, n, m in UNLOADED]
+        per_replica = [[call(r, replica_generate, mix_prompt(seed, n, vocab),
+                             {"max_tokens": m}) for seed, n, m in UNLOADED]
+                       for r in reps]
+        tok = ByteTokenizer()
+        via_ingress = []
+        for (seed, n, m), ids in zip(UNLOADED, want):
+            resp = ingress.handle_http.remote({
+                "path": "/v1/completions", "body": {
+                    "prompt": mix_prompt(seed, n, vocab), "max_tokens": m,
+                    "ignore_eos": True}}).result(timeout_s=SERVE_TIMEOUT_S)
+            via_ingress.append(
+                resp["usage"]["completion_tokens"] == m
+                and resp["choices"][0]["text"] == tok.decode(ids))
+        res["a"] = {"running_s": running_s, "replicas": ident,
+                    "system_actors": {k: {"pid": v[0], "cuda": v[1]}
+                                      for k, v in system.items()},
+                    "ids_through_handle_equal": through_handle == want,
+                    "ids_per_replica_equal": [ids == want
+                                              for ids in per_replica],
+                    "ingress_full_and_text_equal": via_ingress}
+        print(f"serve (a): build_openai_app RUNNING in {running_s:.1f} s; "
+              + "; ".join(f"replica pid {r['pid']} on {r['devices']} "
+                          f"(CUDA_VISIBLE_DEVICES {r['visible']}), device "
+                          f"bytes in use {r['gauge_in_use']:.0f} over its "
+                          f"weights' {r['weight_bytes']}, kernel builds "
+                          f"{r['kernel_builds']:.0f}" for r in ident)
+              + f"; script pid {os.getpid()}; controller and proxy CUDA "
+              f"{[v[1] for v in system.values()]}; run_engine's 3 unloaded "
+              f"ids equal through the handle: {through_handle == want}, on "
+              f"each replica: {res['a']['ids_per_replica_equal']}; through "
+              f"the ingress full with equal text: {via_ingress}",
+              flush=True)
+        if not (through_handle == want and all(
+                ids == want for ids in per_replica) and all(via_ingress)):
+            raise SystemExit(f"the replicas' ids differ from run_engine's: "
+                             f"{through_handle} / {per_replica} against "
+                             f"{want}")
+
+        # (b) the mix through the HTTP proxy, each replica warmed first as
+        # run_engine's engine is (the 100- and 600-token prompts, a
+        # sampled request)
+        for r in reps:
+            for seed, n, kw in ((1000, 100, {"max_tokens": 8}),
+                                (1001, 600, {"max_tokens": 4}),
+                                (1002, 128, {"max_tokens": 4,
+                                             "temperature": 0.8,
+                                             "seed": 1})):
+                call(r, replica_generate, mix_prompt(seed, n, vocab), kw)
+        port = serve.http_port()
+        windows = {}
+        for key, base, stream in (("whole", 600, False),
+                                  ("sse", 900, True)):
+            before = [call(r, replica_engine_stats)["replica_total"]
+                      for r in reps]
+            rows, wall, wants = serve_mix_window(port, base, vocab, stream)
+            after = [call(r, replica_engine_stats)["replica_total"]
+                     for r in reps]
+            n_tok = sum(row[0] for row in rows)
+            short = [(i, row[0], row[1], w) for i, (row, w)
+                     in enumerate(zip(rows, wants))
+                     if (row[0], row[1]) != (w, "length")]
+            win = {"requests": len(rows), "tokens": n_tok, "wall_s": wall,
+                   "output_tok_s": n_tok / wall,
+                   "per_replica": [a - b for a, b in zip(after, before)],
+                   "short": short}
+            if stream:
+                ttft = [row[2] for row in rows if row[2] is not None]
+                rates = [(row[0] - 1) / row[3] for row in rows
+                         if row[3] and row[0] > 1]
+                win.update(ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+                           ttft_p90_ms=1e3 * float(np.percentile(ttft, 90)),
+                           stream_tok_s_p50=float(np.median(rates)))
+            windows[key] = win
+        engine_rate = report["engine"]["output_tok_s"]
+        server_rates = [w["output_tok_s"]
+                        for w in report["frontends"]["server_load"]]
+        # the device-busy share inside each replica over one rerun (more
+        # while a replica's window lost kernel events): both windows open
+        # before the first request and stop after the last response
+        prof = None
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            call_all(reps, replica_profile_open)
+            rows, wall, _ = serve_mix_window(port, 1200 + 300 * attempt,
+                                             vocab, False)
+            call_all(reps, replica_profile_stop)
+            prof = call_all(reps, replica_profile_close)
+            if all(p["whole"] for p in prof):
+                break
+        b_launches = [call(r, replica_launches, True) for r in reps]
+        res["b"] = {"windows": windows, "run_engine_tok_s": engine_rate,
+                    "run_frontends_server_tok_s": server_rates,
+                    "profiled": {"attempts": attempt, "replicas": prof},
+                    "launches_a_b": b_launches}
+        launches["a_b"] = sum(b_launches)
+        for key, win in windows.items():
+            print(f"serve (b) {key}: {win['requests']} concurrent requests "
+                  f"through the proxy, {win['tokens']} tokens in "
+                  f"{win['wall_s']:.3f} s = {win['output_tok_s']:.1f} output "
+                  f"tok/s ({win['output_tok_s'] / engine_rate:.4f} of "
+                  f"run_engine's {engine_rate:.1f}; run_frontends' server "
+                  f"{', '.join(f'{x:.1f}' for x in server_rates)}); requests "
+                  f"per replica {win['per_replica']}"
+                  + (f"; TTFT p50 {win['ttft_p50_ms']:.2f} ms, p90 "
+                     f"{win['ttft_p90_ms']:.2f} ms; a stream's tok/s after "
+                     f"its first token p50 {win['stream_tok_s_p50']:.1f}"
+                     if key == "sse" else ""), flush=True)
+        print("serve (b) device-busy share in each replica's process over "
+              f"a rerun (window {attempt}): " + "; ".join(
+                  (f"{p['busy_ms']:.1f} ms busy of {p['window_ms']:.1f} = "
+                   f"{p['busy_ms'] / p['window_ms']:.4f} ({p['launches']} "
+                   f"forward launches, {p['kernel_events']} traced)")
+                  if p["whole"] else
+                  f"not measured (the window kept {p['kernel_events']} of "
+                  f"{p['launches']} launches)" for p in prof)
+              + f"; forward launches in the replicas over (a) and (b) "
+              f"{b_launches}", flush=True)
+        short = {k: w["short"] for k, w in windows.items() if w["short"]}
+        if short:
+            raise SystemExit(f"serve (b): requests streamed short: {short}")
+        if not all(all(n > 0 for n in w["per_replica"])
+                   for w in windows.values()):
+            raise SystemExit("serve (b): a replica served no request")
+        if not all(n > 0 for n in b_launches):
+            raise SystemExit(f"serve (b): a replica never launched the "
+                             f"forward kernel: {b_launches}")
+
+        # (c) a replica dies under kill-rung traffic, the KV tier on
+        kill_reqs = sb._build_requests(SERVE_KILL["requests"],
+                                       SERVE_BENCH_SEED,
+                                       families=SERVE_KILL["families"])
+        kill_at = int(SERVE_KILL["requests"] * SERVE_KILL["kill_frac"])
+        page = serve_llm_config().engine_config.page_size
+        kill_roots = {PrefixCache.root_digest_for(prompt, page)
+                      for _, prompt in kill_reqs}
+        stats0 = {r.actor_id: call(r, replica_engine_stats) for r in reps}
+        done, errors, lock = [0], [], threading.Lock()
+        killed = {}
+
+        def one(i):
+            _, prompt = kill_reqs[i]
+            try:
+                out = ingress.handle_http.remote({
+                    "path": "/v1/completions", "body": {
+                        "prompt": prompt, "max_tokens": 1,
+                        "ignore_eos": True}}).result(
+                            timeout_s=SERVE_TIMEOUT_S)
+                if out["usage"]["completion_tokens"] != 1:
+                    raise RuntimeError(f"short: {out}")
+            except Exception as e:  # noqa: BLE001 — counted, then gated
+                with lock:
+                    errors.append(repr(e))
+                return
+            with lock:
+                done[0] += 1
+                fire = done[0] == kill_at
+            if fire:
+                # the replica holding the most of the burst's families (its
+                # engine's hottest family rows; the busier one on a tie)
+                st = {r.actor_id: call(r, replica_engine_stats)
+                      for r in reps}
+                held = {rid: sum(row["root"] in kill_roots
+                                 for row in s_["kv_families"])
+                        for rid, s_ in st.items()}
+                victim = max(reps, key=lambda r: (
+                    held[r.actor_id], st[r.actor_id]["replica_total"]))
+                killed.update(
+                    replica=victim, pid=call(victim, replica_identity)["pid"],
+                    launches=call(victim, replica_launches),
+                    survivor_stats=next(st[r.actor_id] for r in reps
+                                        if r is not victim),
+                    families=[held[r.actor_id] for r in reps])
+                killed["t"] = time.monotonic()
+                rt.kill(victim)
+
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(SERVE_KILL["concurrency"]) as pool:
+            list(pool.map(one, range(SERVE_KILL["requests"])))
+        burst_s = time.monotonic() - t0
+        if "replica" not in killed:
+            raise SystemExit(f"serve (c): the kill never fired ({done[0]} "
+                             f"done, errors {errors[:3]})")
+        victim = killed["replica"]
+        survivor = next(r for r in reps if r is not victim)
+        deadline = time.monotonic() + SERVE_START_S
+        while True:
+            info = replicas(SERVE_APP, server_dep)
+            fresh = [r for r in info["replicas"]
+                     if r.actor_id not in (victim.actor_id,
+                                           survivor.actor_id)]
+            if fresh and len(info["replicas"]) == 2:
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(f"serve (c): no replacement replica: "
+                                 f"{info}")
+            time.sleep(0.2)
+        recovery_s = time.monotonic() - killed["t"]
+        dead_reported = victim.actor_id in info.get("dead", [])
+        replacement = fresh[0]
+        (rep_ident,) = on_card([replacement], "(c) the replacement")
+        exit_deadline = time.monotonic() + 60
+        while not pid_exited(killed["pid"]):
+            if time.monotonic() > exit_deadline:
+                raise SystemExit(f"serve (c): the killed replica's process "
+                                 f"{killed['pid']} did not exit")
+            time.sleep(0.2)
+        # the replacement's warm restart pulls asynchronously
+        pull_deadline = time.monotonic() + 30
+        while True:
+            s_surv = call(survivor, replica_engine_stats)
+            s_new = call(replacement, replica_engine_stats)
+            surv_pulls = s_surv["kv_pulls"] - stats0[
+                survivor.actor_id]["kv_pulls"]
+            if surv_pulls + s_new["kv_pulls"] > 0 or \
+                    time.monotonic() > pull_deadline:
+                break
+            time.sleep(0.5)
+        at_kill = killed["survivor_stats"]["prefix_cache"]
+
+        def prefilled(pc):
+            return pc["lookup_tokens"] - pc["hit_tokens"]
+
+        extra = (prefilled(s_surv["prefix_cache"]) - prefilled(at_kill)
+                 + prefilled(s_new["prefix_cache"]))
+        c_launches = [killed["launches"],
+                      call(survivor, replica_launches, True),
+                      call(replacement, replica_launches, True)]
+        launches["c"] = sum(c_launches)
+        res["c"] = {"requests": SERVE_KILL["requests"], "completed": done[0],
+                    "errors": errors, "burst_s": burst_s,
+                    "kill_after": kill_at, "families": killed["families"],
+                    "recovery_s": recovery_s, "dead_reported": dead_reported,
+                    "killed_pid": killed["pid"], "replacement": rep_ident,
+                    "survivor_pulls": surv_pulls,
+                    "replacement_pulls": s_new["kv_pulls"],
+                    "replacement_pull_fallbacks": s_new["kv_pull_fallbacks"],
+                    "extra_prefill_tokens": extra,
+                    "launches_victim_survivor_replacement": c_launches}
+        print(f"serve (c): {done[0]}/{SERVE_KILL['requests']} completed, "
+              f"{len(errors)} errors, in {burst_s:.2f} s; killed replica "
+              f"pid {killed['pid']} after {kill_at} (the burst's families "
+              f"held by each replica {killed['families']}); the controller reported the death: "
+              f"{dead_reported}; replacement pid {rep_ident['pid']} on the "
+              f"card ({rep_ident['gauge_in_use']:.0f} device bytes) "
+              f"{recovery_s:.2f} s after the kill; the killed process "
+              f"exited; store-tier pulls: survivor +{surv_pulls}, "
+              f"replacement {s_new['kv_pulls']}; extra prefill tokens after "
+              f"the kill {extra}; forward launches (victim, survivor, "
+              f"replacement) {c_launches}", flush=True)
+        if errors or done[0] != SERVE_KILL["requests"]:
+            raise SystemExit(f"serve (c): requests failed: {errors[:3]}")
+        if not dead_reported:
+            raise SystemExit("serve (c): the controller did not report the "
+                             "death")
+        if surv_pulls + s_new["kv_pulls"] <= 0:
+            raise SystemExit("serve (c): no store-tier pull on the survivor "
+                             "or the replacement")
+        serve.delete(SERVE_APP)
+
+        # (d) prefill and decode replicas, the handoff through the tier;
+        # the first prompt warms both replicas and is not timed
+        texts = [frontend_prompt(40 + i, 300) for i in range(4)]
+        t0 = time.monotonic()
+        serve.run(build_pd_openai_app(serve_llm_config(
+            replicas=1, default_max_tokens=PD_MAX_TOKENS)), name="pd",
+            route_prefix="/pd", _blocking_timeout_s=SERVE_START_S)
+        pd_running_s = time.monotonic() - t0
+        (p_rep,) = replicas("pd", f"Prefill:{SERVE_MODEL_ID}")["replicas"]
+        (d_rep,) = replicas("pd", f"Decode:{SERVE_MODEL_ID}")["replicas"]
+        pd_ident = on_card([p_rep, d_rep], "(d)")
+        for r in (p_rep, d_rep):
+            call(r, replica_launches, True)
+        prefill = serve.DeploymentHandle("pd", f"Prefill:{SERVE_MODEL_ID}")
+        decode = serve.DeploymentHandle("pd", f"Decode:{SERVE_MODEL_ID}")
+        params = {"max_tokens": PD_MAX_TOKENS}
+        pd_ids, handoffs, pd_ms = [], [], []
+        for text in texts:
+            t1 = time.perf_counter()
+            pre = prefill.prefill.remote(text, params).result(
+                timeout_s=SERVE_TIMEOUT_S)
+            t2 = time.perf_counter()
+            out = decode.decode.remote(pre, params).result(
+                timeout_s=SERVE_TIMEOUT_S)
+            t3 = time.perf_counter()
+            pd_ids.append(out["tokens"])
+            handoffs.append(bool(pre.get("kv_in_tier"))
+                            and "kv_k" not in pre)
+            pd_ms.append(((t2 - t1) * 1e3, (t3 - t2) * 1e3))
+        # one more prompt through the ingress (PDRouter), which makes the
+        # same two calls; a prompt of its own, so that the three above keep
+        # the spines they were handed off with for the reference below
+        via_pd = serve.get_app_handle("pd").handle_http.remote({
+            "path": "/v1/completions", "body": {
+                "prompt": frontend_prompt(44, 300),
+                "max_tokens": PD_MAX_TOKENS}}).result(
+                    timeout_s=SERVE_TIMEOUT_S)
+        d_stats = call(d_rep, replica_engine_stats)
+        d_launches = [call(r, replica_launches, True) for r in (p_rep, d_rep)]
+        launches["d"] = sum(d_launches)
+        serve.delete("pd")
+        # the reference, in a task of its own holding the card (this
+        # process launches no kernel from another thread in this phase)
+        ref = rt.get(rt.remote(num_gpus=0.5)(pd_reference).remote(texts),
+                     timeout=SERVE_TIMEOUT_S)
+        card_pids.add(ref["pid"])
+        pull_ms = (d_stats.get("kv_tier") or {}).get("last_pull_ms")
+        res["d"] = {"running_s": pd_running_s, "replicas": pd_ident,
+                    "ids": pd_ids, "ids_equal": pd_ids == ref["tier"],
+                    "reference_pulls": ref["tier_pulls"],
+                    "cold_ids_equal": [a == b for a, b
+                                       in zip(pd_ids, ref["cold"])],
+                    "kv_in_tier": handoffs,
+                    "decode_kv_pulls": d_stats["kv_pulls"],
+                    "decode_kv_pull_pages": d_stats["kv_pull_pages"],
+                    "decode_pull_fallbacks": d_stats["kv_pull_fallbacks"],
+                    "prefill_decode_ms": pd_ms, "last_pull_ms": pull_ms,
+                    "ingress_usage": via_pd["usage"],
+                    "launches_prefill_decode": d_launches}
+        print(f"serve (d): build_pd_openai_app RUNNING in "
+              f"{pd_running_s:.1f} s (prefill pid {pd_ident[0]['pid']}, "
+              f"decode pid {pd_ident[1]['pid']}); handoffs through the store "
+              f"tier {handoffs}; the decode replica pulled "
+              f"{d_stats['kv_pulls']} spines ({d_stats['kv_pull_pages']} "
+              f"pages, {d_stats['kv_pull_fallbacks']} fallbacks), its last "
+              f"pull {pull_ms} ms; prefill / decode call ms "
+              + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in pd_ms[1:])
+              + f" (the warm-up's {pd_ms[0][0]:.1f} / {pd_ms[0][1]:.1f})"
+              + f"; ids equal to a single engine pulling the same spines "
+              f"({ref['tier_pulls']} pulls): {pd_ids == ref['tier']}; equal "
+              f"to a cold single engine's: {res['d']['cold_ids_equal']}; "
+              f"through the ingress: {via_pd['usage']}; forward launches "
+              f"(prefill, decode) {d_launches}", flush=True)
+        if not (pd_ids == ref["tier"] and all(handoffs)
+                and ref["tier_pulls"] >= len(texts)
+                and d_stats["kv_pulls"] >= len(texts)
+                and d_stats["kv_pull_fallbacks"] == 0
+                and via_pd["usage"]["completion_tokens"] >= 1
+                and all(len(i) >= 1 for i in pd_ids)):
+            raise SystemExit(f"serve (d): the P/D handoff failed: "
+                             f"{res['d']}")
+        if d_launches[0] <= 0:
+            raise SystemExit("serve (d): the prefill replica never launched "
+                             "the forward kernel")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    # the phase ends when every process that held the card has exited
+    t0 = time.monotonic()
+    while not all(pid_exited(pid) for pid in card_pids):
+        if time.monotonic() - t0 > 60:
+            raise SystemExit(f"serve: processes that held the card outlived "
+                             f"the runtime: {sorted(card_pids)}")
+        time.sleep(0.2)
+    res["exit_wait_s"] = time.monotonic() - t0
+    res["launches"] = launches
+    res["phase_s"] = time.monotonic() - t_phase
+    report["serve"] = res
+    total = sum(launches.values())
+    print(f"serve: forward launches in the replicas' processes {launches} "
+          f"= {total}; the {len(card_pids)} processes that held the card "
+          f"exited {res['exit_wait_s']:.2f} s after the shutdown; session "
+          f"{node.session_dir}; phase "
+          f"{res['phase_s']:.1f} s", flush=True)
+    return total
+
+
 # The trainer's first step through the kernels against the same step
 # through the plain attention, in bf16.  The two attentions' outputs and
 # gradients differ by single bf16 roundings that average out over 12288
@@ -4340,6 +5125,7 @@ def main() -> int:
     runtime_launches = run_runtime(report)
     frontend_launches = run_frontends(report)
     serve_launches = run_serve_bench(report)
+    serve_runtime_launches = run_serve(report)
     trainer_launches = run_trainer(report)
     torch_trainer_launches = run_torch_trainer(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
@@ -4369,7 +5155,8 @@ def main() -> int:
             by_path = {"engine": engine_launches,
                        "runtime": runtime_launches,
                        "frontends": frontend_launches,
-                       "serve_bench": serve_launches, **by_path}
+                       "serve_bench": serve_launches,
+                       "serve": serve_runtime_launches, **by_path}
         entry = {"name": name, "route": "cuda",
                  "source": f"ray_tpu_torch/ops/csrc/{src}",
                  "replaces": replaces,

@@ -18,9 +18,11 @@ package seals, the other decodes.  bf16 has no numpy dtype without
 CPU tensors.
 
 Layering: the tier knows stores and directories; the engine owns all
-page-pool mutation (on its scheduler thread) and all metrics.  The JAX
-package's worker-store backend and GCS directory need its runtime and
-stay there; ``InProcessStore`` and ``LocalDirectory`` serve one process.
+page-pool mutation (on its scheduler thread) and all metrics.
+``WorkerStoreBackend`` and ``GcsDirectory`` hold spines in the port
+runtime's shm store and their directory in its GCS, so engines in
+different processes (serve replicas) share them; ``InProcessStore`` and
+``LocalDirectory`` serve one process.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ _OID_SALT = b"rtpu-kv:"
 # How long a directory miss is cached before the engine's admission path
 # asks again (keeps a per-cold-request directory lookup off the hot path).
 _NEG_TTL_S = 2.0
+
+_FALSY = ("", "0", "false", "no", "off")  # RTPU_KV_TIER values that mean off
 
 # header dtype name -> (torch dtype, numpy dtype of its bits)
 _DTYPES = {"float32": (torch.float32, np.float32),
@@ -175,6 +179,48 @@ class InProcessStore:
             self._objs.pop(bytes(oid), None)
 
 
+class WorkerStoreBackend:
+    """This node's shm store (the port runtime's ``StoreClient``) + the
+    striped pull plane behind a miss.
+
+    put() also reports the seal over the scheduler RPC lane
+    (``note_sealed``) so the GCS records this node as a holder; a local
+    get miss then asks the scheduler to ``pull`` — the daemon fetches
+    the stripes daemon-to-daemon over ``XFER_PULL_RANGE`` from a holder
+    — and polls the local store briefly for the object to land.  Two
+    replica processes on one node share the store: one seals, the other
+    reads the same object."""
+
+    def __init__(self, worker, pull_wait_s: float = 2.0):
+        self._w = worker
+        self._pull_wait_s = pull_wait_s
+
+    def put(self, oid: bytes, data: bytes) -> None:
+        self._w.store.put(oid, data)
+        try:
+            self._w.rpc("note_sealed", {"oid": oid})
+        except Exception:  # noqa: BLE001 — local put stands on its own
+            pass
+
+    def get_bytes(self, oid: bytes, timeout_ms: int = 0):
+        got = self._w.store.get_bytes(oid, timeout_ms)
+        if got is not None:
+            return got
+        try:
+            self._w.rpc("pull", {"oid": oid})
+        except Exception:  # noqa: BLE001 — no transfer plane: a miss
+            return None
+        deadline = time.monotonic() + self._pull_wait_s
+        while time.monotonic() < deadline:
+            got = self._w.store.get_bytes(oid, timeout_ms=200)
+            if got is not None:
+                return got
+        return None
+
+    def contains(self, oid: bytes) -> bool:
+        return self._w.store.contains(oid)
+
+
 class LocalDirectory:
     """In-process family directory: root digest hex -> {oid, blocks,
     hits, page_size}."""
@@ -206,6 +252,63 @@ class LocalDirectory:
     def drop(self, root_hex: str) -> None:
         with self._lock:
             self._recs.pop(root_hex, None)
+
+
+class GcsDirectory:
+    """Cluster directory over the GCS kv table (namespace ``kv_tier``):
+    one record per family root, plus an advisory ``_index`` heat doc for
+    warm restarts.  The index merge is read-modify-write and therefore
+    racy across publishers — acceptable: it only seeds prehydration
+    hints, the per-root records stay authoritative."""
+
+    NS = "kv_tier"
+    _INDEX_CAP = 64
+
+    def __init__(self, worker):
+        self._w = worker
+
+    def publish(self, root_hex: str, rec: dict) -> None:
+        try:
+            self._w.rpc("kv_put", {
+                "namespace": self.NS, "key": root_hex.encode(),
+                "value": json.dumps(rec).encode()})
+            raw = self._w.rpc("kv_get", {"namespace": self.NS,
+                                         "key": b"_index"})
+            idx = json.loads(raw) if raw else {}
+            idx[root_hex] = int(rec.get("hits", 0))
+            top = dict(sorted(idx.items(), key=lambda kv: -kv[1])
+                       [:self._INDEX_CAP])
+            self._w.rpc("kv_put", {"namespace": self.NS, "key": b"_index",
+                                   "value": json.dumps(top).encode()})
+        except Exception:  # noqa: BLE001 — publishing is best-effort
+            pass
+
+    def lookup(self, root_hex: str) -> Optional[dict]:
+        try:
+            raw = self._w.rpc("kv_get", {"namespace": self.NS,
+                                         "key": root_hex.encode()})
+        except Exception:  # noqa: BLE001
+            return None
+        if not raw:
+            return None
+        try:
+            return json.loads(raw)
+        except Exception:  # noqa: BLE001
+            return None
+
+    def hottest(self, n: int) -> List[str]:
+        try:
+            raw = self._w.rpc("kv_get", {"namespace": self.NS,
+                                         "key": b"_index"})
+        except Exception:  # noqa: BLE001
+            return []
+        if not raw:
+            return []
+        try:
+            idx = json.loads(raw)
+        except Exception:  # noqa: BLE001
+            return []
+        return sorted(idx, key=lambda r: -idx[r])[:n]
 
 
 # ------------------------- the tier --------------------------------------
@@ -367,17 +470,41 @@ class KVTier:
 
 _default_lock = threading.Lock()
 _default_tier: Optional[KVTier] = None
+_default_set = False
+_auto_tiers: Dict[int, KVTier] = {}  # id(worker) -> tier
 
 
 def set_default_tier(tier: Optional[KVTier]) -> None:
-    """Install (or, with None, remove) the tier the servers in this
-    process hand their engines."""
-    global _default_tier
+    """Install (or, with None, disable) the process default explicitly;
+    wins over the worker-derived automatic tier."""
+    global _default_tier, _default_set
     with _default_lock:
-        _default_tier = tier
+        _default_tier, _default_set = tier, True
 
 
 def default_tier() -> Optional[KVTier]:
-    """The tier installed by ``set_default_tier``, or None."""
+    """The tier an engine in this process should use: the explicitly
+    installed one if any; else, when ``RTPU_KV_TIER`` is on and a process
+    of the port's runtime (a worker, such as a serve replica, or the
+    process that called ``init()``) has a store client, a tier over that
+    process's shm store + the GCS directory.  None outside the runtime
+    (plain LLMEngine users opt in by passing a tier)."""
     with _default_lock:
-        return _default_tier
+        if _default_set:
+            return _default_tier
+    if os.environ.get("RTPU_KV_TIER", "1").strip().lower() in _FALSY:
+        return None
+    from ray_tpu_torch._private.worker import global_worker_or_none
+
+    w = global_worker_or_none()
+    if w is None or getattr(w, "store", None) is None:
+        return None
+    with _default_lock:
+        if _default_set:
+            return _default_tier
+        tier = _auto_tiers.get(id(w))
+        if tier is None:
+            tier = KVTier(WorkerStoreBackend(w), GcsDirectory(w))
+            _auto_tiers.clear()  # a fresh worker obsoletes old bindings
+            _auto_tiers[id(w)] = tier
+        return tier

@@ -6,14 +6,16 @@ sampled token and the prompt's KV pages), the router forwards them to the
 decode server, whose engine injects the pages via ``submit_with_kv`` and
 continues decoding without recomputing the prompt: prefill (compute-bound)
 and decode (memory-bound, latency-sensitive) scale apart.  With a KV tier
-installed (``kv_tier.set_default_tier``) the handoff ships only the prompt:
-the prefill admission force-seals the spine into the store and the decode
-engine PULLS the pages, prefilling only the last partial block; without a
-tier the pages travel as host tensors in the prefill result.
+(``kv_tier.default_tier``: in a replica of the port's runtime, the shm
+store and the GCS directory) the handoff ships only the prompt: the prefill
+admission force-seals the spine into the store and the decode engine PULLS
+the pages, prefilling only the rest of the prompt, across processes when
+the two are replicas; without a tier the pages travel as host tensors in
+the prefill result.
 
 The router takes handles with ``.options(routing_hint=...).<method>
-.remote(...).result(timeout_s=...)``; building the serve application
-(``build_pd_openai_app`` in the JAX package) needs the serve runtime.
+.remote(...).result(timeout_s=...)``; ``build_pd_openai_app`` binds the
+three as a serve application.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 import uuid
 from typing import Optional
 
+from ray_tpu_torch import serve
 from ray_tpu_torch.llm import kv_tier as kv_tier_mod
 from ray_tpu_torch.llm.engine import SamplingParams
 from ray_tpu_torch.llm.paged_cache import PrefixCache
@@ -187,3 +190,25 @@ class PDRouter:
                 },
             }
         return {"error": f"unknown endpoint {path}"}
+
+
+def build_pd_openai_app(llm_config: LLMConfig,
+                        num_prefill_replicas: int = 1,
+                        num_decode_replicas: int = 1) -> serve.Application:
+    """Prefill and decode deployments behind the ``PDRouter`` ingress (the
+    reference's prefill_decode_disagg.build_app)."""
+    prefill = serve.deployment(PrefillServer).options(
+        name=f"Prefill:{llm_config.model_id}",
+        num_replicas=num_prefill_replicas,
+        ray_actor_options=llm_config.ray_actor_options,
+        request_router_policy="prefix_aware",
+    ).bind(llm_config)
+    decode = serve.deployment(DecodeServer).options(
+        name=f"Decode:{llm_config.model_id}",
+        num_replicas=num_decode_replicas,
+        ray_actor_options=llm_config.ray_actor_options,
+        request_router_policy="prefix_aware",
+    ).bind(llm_config)
+    return serve.deployment(PDRouter).options(
+        name="PDRouter").bind(prefill, decode, llm_config.model_id,
+                              llm_config.default_max_tokens)

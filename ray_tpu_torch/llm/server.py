@@ -6,9 +6,10 @@ continuous-batching engine (``llm/engine.py``) and answers
 streams; ``OpenAIRouter`` is the path-aware ingress that maps an HTTP-shaped
 request dict onto a handle to an ``LLMServer``.  The handle is anything with
 ``.options(routing_hint=...).<method>.remote(...).result(timeout_s=...)``:
-a serve deployment handle, or an in-process stand-in.  Building the serve
-application (``build_openai_app`` in the JAX package) needs the serve
-runtime, which the port does not have yet.
+a serve deployment handle, or an in-process stand-in.  ``build_openai_app``
+binds both as a serve application: ``LLMServer`` replicas behind the
+prefix-aware router, each an actor of the port's runtime holding its engine
+on ``LLMConfig.device`` in its own process.
 """
 
 from __future__ import annotations
@@ -18,19 +19,20 @@ import queue as queue_mod
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+from ray_tpu_torch import serve
 from ray_tpu_torch._device import DeviceLike
 from ray_tpu_torch.llm import kv_tier as kv_tier_mod
 from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
+from ray_tpu_torch.serve import StreamingResponse
 from ray_tpu_torch.util import tracing
 
 
 @dataclass
 class LLMConfig:
-    """Model loading and engine settings of one served model (the JAX
-    package's replica settings wait for the serve runtime)."""
+    """Model loading, engine and replica settings of one served model."""
 
     model_id: str = "llama-tiny"
     # callable returning (state, LlamaConfig) — the checkpoint loading hook
@@ -38,18 +40,9 @@ class LLMConfig:
     tokenizer: Optional[str] = None  # None/"byte" or HF name
     engine_config: EngineConfig = field(default_factory=EngineConfig)
     default_max_tokens: int = 64
+    num_replicas: int = 1
+    ray_actor_options: Dict[str, Any] = field(default_factory=dict)
     device: DeviceLike = None  # None: CUDA; "cpu" runs the plain versions
-
-
-class StreamingResponse:
-    """Chunks (str or bytes) for the HTTP client, sent as they are yielded;
-    SSE is ``content_type="text/event-stream"``."""
-
-    def __init__(self, chunks: Iterable, content_type: str = "text/plain",
-                 status: int = 200):
-        self.chunks = chunks
-        self.content_type = content_type
-        self.status = status
 
 
 def make_engine(llm_config: LLMConfig, kv_tier=None) -> LLMEngine:
@@ -81,15 +74,18 @@ class LLMServer:
     def __init__(self, llm_config: LLMConfig):
         self._config = llm_config
         self._tok = get_tokenizer(llm_config.tokenizer)
-        # With a KV tier installed (kv_tier.set_default_tier) the engine
-        # seals hot family spines and pulls sealed ones instead of
-        # cold-prefilling.
+        # Store-backed KV tier: in a replica of the port's runtime the engine
+        # seals hot family spines into the shm store and pulls them back on
+        # sheds/failover instead of cold-prefilling (or a tier installed
+        # with kv_tier.set_default_tier).
         self._tier = kv_tier_mod.default_tier()
         self._engine = make_engine(llm_config, self._tier)
         if self._tier is not None:
-            # Warm start: re-hydrate the tier's hottest families before
-            # traffic arrives.  Asynchronous (the scheduler thread drains
-            # the queue); an empty directory is a no-op.
+            # Warm restart: a replica the controller just restarted (or a
+            # fresh scale-up) re-hydrates the cluster's hottest families
+            # from the store before traffic arrives.  Asynchronous (the
+            # scheduler thread drains the queue); an empty directory is a
+            # no-op.
             roots = self._tier.hottest(8)
             if roots:
                 self._engine.kv_prehydrate(roots)
@@ -307,3 +303,20 @@ class OpenAIRouter:
                         timeout_s=300)
                 return h.completions.remote(body).result(timeout_s=300)
         return {"error": f"unknown endpoint {path}"}
+
+
+def build_openai_app(llm_config: LLMConfig) -> serve.Application:
+    """``LLMServer`` replicas behind the ``OpenAIRouter`` ingress (the
+    reference's builders/application_builders.py build_openai_app)."""
+    server = serve.deployment(LLMServer).options(
+        name=f"LLMServer:{llm_config.model_id}",
+        num_replicas=llm_config.num_replicas,
+        ray_actor_options=llm_config.ray_actor_options,
+        max_ongoing_requests=llm_config.engine_config.max_slots * 2,
+        # KV-locality routing: keep shared prompt prefixes (system prompts,
+        # multi-turn histories) on the replica holding their warm pages
+        request_router_policy="prefix_aware",
+    ).bind(llm_config)
+    router = serve.deployment(OpenAIRouter).options(
+        name="OpenAIRouter").bind(server, llm_config.model_id)
+    return router

@@ -220,10 +220,7 @@ TRAIN_LEFT_OUT = {
     "XGBoostTrainer": "no device compute; xgboost is in neither image",
     "LightGBMTrainer": "no device compute; lightgbm is in neither image",
 }
-LLM_LEFT_OUT = {
-    "build_openai_app": "needs a serve runtime",
-    "build_pd_openai_app": "needs a serve runtime",
-}
+LLM_LEFT_OUT = {}
 
 
 @pytest.mark.parametrize("package,left_out", [("train", TRAIN_LEFT_OUT),
