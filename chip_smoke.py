@@ -100,7 +100,9 @@ Phases, each fatal on failure:
      tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
      (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel;
  10. the user's train loop (``run_torch_trainer``): ``TorchTrainer`` with
-     one NCCL GPU worker over ``from_numpy`` int32 token rows, read by
+     one NCCL GPU worker, an actor of the port's runtime in a ``{"CPU": 1,
+     "GPU": 1}`` placement-group bundle, over ``from_numpy`` int32 token
+     rows, read by
      ``get_dataset_shard("train").iter_torch_batches`` onto the card
      (pinned staging, a side stream, two batches in flight) into phase
      9's GPT-2 124M step, 3 warm-up and 24 timed steps: the loss finite
@@ -111,6 +113,23 @@ Phases, each fatal on failure:
      p50 / p90, the share of copies done before the step on the batch
      before them ended, and one batch's and a 64 MB block's H2D GB/s,
      pinned and pageable;
+ 10b. Tune on the card (``run_tune``), each trial an actor of the port's
+     runtime training phase 9's GPT-2 124M step in its own process on
+     rows of ids below 512: (a) ASHA (max_t 24, grace 6, factor 2) over 4
+     learning rates, two trials at a time at ``num_gpus`` 0.5 each: all
+     end, one at least stops at a rung, every first loss equals this
+     process's step on the same parameters and rows, 1e-6 ranks last, the
+     best trial's loss falls, 12 launches of each kernel a step in each
+     trial's process on ``cuda:0`` under its grant; start-up seconds and
+     the concurrent pair's tokens/s against phase 9's; (b) ``TorchTrainer``
+     inside a trial with no GPU, its worker in a ``{"CPU": 1, "GPU": 1}``
+     bundle, ``callbacks`` feeding ``tune.report``, a checkpoint every 4
+     of 16 steps and the worker's process exiting at step 10 once: the
+     second attempt from the step-8 checkpoint with the same loss there,
+     the killed process gone, no CUDA context in the trial's process;
+     seconds to a new worker, checkpoint GB/s, steps lost; (c) PBT over 2
+     trials at 4 layers, 18 steps: the weak trial exploits and its first
+     loss after the restore equals the donor's at that step;
  11. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
@@ -125,7 +144,8 @@ Phases, each fatal on failure:
      the kernels at its attention shape (32 heads on 8 KV heads, head_dim
      128, seq 8192; the plain versions at 8 heads on 2): first
      ``train_llama3_8b`` through ``DataParallelTrainer``, its controller
-     and a spawned worker, with a committed checkpoint of the reckoned
+     and a worker actor of the port's runtime, with a committed checkpoint
+     of the reckoned
      size (its save GB/s printed; written where there is room, then
      deleted) and steady tokens/s, model TFLOP/s and MFU in the result,
      and a dry-geometry run whose checkpoint is restored onto the card;
@@ -220,35 +240,56 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 PROFILE_ATTEMPTS = 3
+# small kernels launched and finished at the head of every profiled window
+# before the measured calls: late in the script (after ``run_serve``) a
+# window loses its first ~10 device events, and these take the loss
+PROFILE_PAD = 64
+WINDOW_MARK = "device_events.window"  # opens the measured calls
 
 
 def device_events(fn, iters: int = 1, complete=bool):
     """Run ``fn`` ``iters`` times under the profiler; returns the
     device-side events' (name, total ms, count), largest first.  Only
     device events: the aten ops that launched them carry the same time
-    again.  A window is whole when every device event came ``iters``
-    times over (a whole multiple: a window that lost events, as windows
-    late in a run of many threads' launches have, is not) and ``complete``
-    accepts its rows (by default: at least one event).  A window that is
-    not whole is profiled again, up to ``PROFILE_ATTEMPTS`` windows;
-    returns [] when none was."""
+    again.  Each window opens with ``PROFILE_PAD`` small kernels, finished
+    before the measured calls begin; only the device events that start
+    after that are read.  A window is whole when every device event came
+    ``iters`` times over (a whole multiple: a window that lost events is
+    not) and ``complete`` accepts its rows (by default: at least one
+    event).  A window that is not whole is profiled again, up to
+    ``PROFILE_ATTEMPTS`` windows; returns [] when none was."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_ATTEMPTS):
+    pad = torch.zeros(1, device="cuda")
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+            for _ in range(PROFILE_PAD):
+                pad.add_(1)
             torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+            with record_function(WINDOW_MARK):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min(e.time_range.start for e in events
+                 if e.name == WINDOW_MARK)
+        totals = {}
+        for e in events:  # the mark's own span on the device is not a kernel
+            if (e.device_type == DeviceType.CUDA and e.name != WINDOW_MARK
+                    and e.time_range.start >= t0):
+                ms, n = totals.get(e.key, (0.0, 0))
+                totals[e.key] = (ms + e.self_device_time_total / 1e3, n + 1)
+        rows = [(k, ms, n) for k, (ms, n) in totals.items()]
         if all(c % iters == 0 for _, _, c in rows) and complete(rows):
             return sorted(rows, key=lambda r: -r[1])
+        print(f"profiled window {attempt + 1} of {PROFILE_ATTEMPTS} is not "
+              f"whole ({sum(c for _, _, c in rows)} device events after "
+              f"the pad)", file=sys.stderr, flush=True)
     return []
 
 
@@ -628,6 +669,13 @@ def kernel_counts(rows, names):
     """Launches of each kernel in ``names`` among profiled device events
     (a name counts the events whose demangled name contains it)."""
     return {n: sum(c for k, _, c in rows if n in k) for n in names}
+
+
+def profiled_as(want):
+    """``device_events``' ``complete`` for a window that must hold each
+    kernel of ``want`` exactly as often as it says: a window in which the
+    profiler lost one of their events is not whole."""
+    return lambda rows: kernel_counts(rows, want) == want
 
 
 # (name, batch, heads, kv_heads, seq, head_dim) of the attention the main
@@ -2507,6 +2555,34 @@ def pid_exited(pid: int) -> bool:
         return True
 
 
+def card_runtime():
+    """Start the port's runtime on this host, the card counted as
+    ``"GPU": 1``; its worker processes import the checkout
+    (``PYTHONPATH``).  Returns the node; the caller shuts it down."""
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p and p != HERE])
+    import ray_tpu_torch as rt
+
+    node = rt.init(num_cpus=8, object_store_memory=RUNTIME_STORE_BYTES)
+    if rt.cluster_resources().get("GPU") != 1:
+        rt.shutdown()
+        raise SystemExit("the node does not count the card as 1 GPU")
+    return node
+
+
+def wait_exited(pids, what: str, within: float = 60.0) -> float:
+    """Wait until every process in ``pids`` (each held the card) has
+    exited; returns the seconds waited."""
+    t0 = time.monotonic()
+    while not all(pid_exited(pid) for pid in pids):
+        if time.monotonic() - t0 > within:
+            raise SystemExit(f"{what}: processes that held the card outlived "
+                             f"the runtime: {sorted(pids)}")
+        time.sleep(0.2)
+    return time.monotonic() - t0
+
+
 def serve_mix_window(port, base, vocab, stream):
     """``run_engine``'s 19-request mix through the HTTP proxy as
     ``/v1/completions``, one client thread each, ``ignore_eos`` holding
@@ -2613,9 +2689,6 @@ def run_serve(report):
 
     import numpy as np
 
-    os.environ["PYTHONPATH"] = os.pathsep.join(
-        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p and p != HERE])
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch._private import profiling
@@ -2681,10 +2754,8 @@ def run_serve(report):
                              f"it should: {bad}")
         return rows
 
-    node = rt.init(num_cpus=8, object_store_memory=RUNTIME_STORE_BYTES)
+    node = card_runtime()
     try:
-        if rt.cluster_resources().get("GPU") != 1:
-            raise SystemExit("the node does not count the card as 1 GPU")
         # (a) the application reaches RUNNING with both replicas on the card
         t0 = time.monotonic()
         serve.run(build_openai_app(serve_llm_config()), name=SERVE_APP,
@@ -3056,13 +3127,7 @@ def run_serve(report):
         finally:
             rt.shutdown()
     # the phase ends when every process that held the card has exited
-    t0 = time.monotonic()
-    while not all(pid_exited(pid) for pid in card_pids):
-        if time.monotonic() - t0 > 60:
-            raise SystemExit(f"serve: processes that held the card outlived "
-                             f"the runtime: {sorted(card_pids)}")
-        time.sleep(0.2)
-    res["exit_wait_s"] = time.monotonic() - t0
+    res["exit_wait_s"] = wait_exited(card_pids, "serve")
     res["launches"] = launches
     res["phase_s"] = time.monotonic() - t_phase
     report["serve"] = res
@@ -3184,8 +3249,12 @@ def run_trainer(report):
     if not math.isfinite(final_loss):
         raise SystemExit("the trainer's loss is not finite")
 
-    # where one step's device time goes (outside the counted run)
-    rows = device_events(lambda: step(state, tokens))
+    # where one step's device time goes (outside the counted run); a
+    # window that lost one of the step's kernel events is profiled again
+    want_profiled = {**{k: cfg.n_layers for k in BF16_KERNELS.values()},
+                     **{k: 0 for k in SCALAR_KERNELS}}
+    rows = device_events(lambda: step(state, tokens),
+                         complete=profiled_as(want_profiled))
     busy = sum(r[1] for r in rows)
     profiled = kernel_counts(rows, (*BF16_KERNELS.values(), *SCALAR_KERNELS))
     attn_ms = {k: sum(t for name, t, _ in rows if k in name)
@@ -3197,8 +3266,6 @@ def run_trainer(report):
           + "; top: " + "; ".join(
               f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:8]),
           flush=True)
-    want_profiled = {**{k: cfg.n_layers for k in BF16_KERNELS.values()},
-                     **{k: 0 for k in SCALAR_KERNELS}}
     if profiled != want_profiled:
         raise SystemExit(f"the profiled trainer step launched {profiled}, "
                          f"want {want_profiled}")
@@ -3286,7 +3353,8 @@ def torch_trainer_loop(config):
         "hidden_share": sum(hidden) / len(hidden), "hidden": hidden,
         "rows": rows.shape[0], "exhausted": exhausted,
         "rows_sha256": hashlib.sha256(rows.tobytes()).hexdigest(),
-        "launches": launches, "device": torch.cuda.get_device_name(device)})
+        "launches": launches, "device": torch.cuda.get_device_name(device),
+        "pid": os.getpid()})
 
 
 def h2d_gbps(nbytes: int, pinned: bool, iters: int) -> float:
@@ -3301,8 +3369,9 @@ def h2d_gbps(nbytes: int, pinned: bool, iters: int) -> float:
 
 
 def run_torch_trainer(report):
-    """The user's loop on the card: ``TorchTrainer`` at one GPU worker
-    (NCCL at world size 1) over ``from_numpy`` token rows, read through
+    """The user's loop on the card: ``TorchTrainer`` at one GPU worker, an
+    actor of the port's runtime in a ``{"CPU": 1, "GPU": 1}`` bundle
+    (NCCL at world size 1), over ``from_numpy`` token rows, read through
     ``iter_torch_batches`` onto the card into ``run_trainer``'s GPT-2 124M
     step (``torch_trainer_loop``).  Fails unless the loss is finite and
     falls, the rows consumed are the source's in order, the worker's first
@@ -3317,6 +3386,7 @@ def run_torch_trainer(report):
     import numpy as np
     import torch
 
+    import ray_tpu_torch as rt
     from ray_tpu_torch import data, train
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.train import step as train_step
@@ -3329,6 +3399,7 @@ def run_torch_trainer(report):
               "warmup": TORCH_TRAINER_WARMUP, "timed": TORCH_TRAINER_TIMED}
     os.makedirs(OUT_DIR, exist_ok=True)
     storage = tempfile.mkdtemp(dir=OUT_DIR)
+    card_runtime()
     t0 = time.monotonic()
     try:
         result = train.TorchTrainer(
@@ -3341,10 +3412,14 @@ def run_torch_trainer(report):
         ).fit()
     finally:
         shutil.rmtree(storage, ignore_errors=True)
+        rt.shutdown()
     fit_s = time.monotonic() - t0
     if result.error is not None:
         raise SystemExit(f"the TorchTrainer loop failed: {result.error}")
     m = result.metrics
+    if m["pid"] == os.getpid():
+        raise SystemExit("the TorchTrainer loop ran in this process")
+    exit_wait_s = wait_exited([m["pid"]], "torch trainer")
 
     # this process's own first step on the same parameters and rows
     gen = torch.Generator(device="cuda").manual_seed(TORCH_TRAINER_SEED)
@@ -3367,8 +3442,10 @@ def run_torch_trainer(report):
     want = {k: cfg.n_layers * n_steps for k in m["launches"]}
     source_sha = hashlib.sha256(tokens.tobytes()).hexdigest()
     print(f"torch trainer (this card, {m['device']}): TorchTrainer, 1 NCCL "
-          f"worker, {n_steps} steps of GPT-2 124M over iter_torch_batches "
-          f"({fit_s:.1f} s for fit): loss first {losses[0]:.6f} last "
+          f"worker actor (pid {m['pid']}, exited {exit_wait_s:.2f} s after "
+          f"the runtime's shutdown), {n_steps} steps of GPT-2 124M over "
+          f"iter_torch_batches ({fit_s:.1f} s for fit): loss first "
+          f"{losses[0]:.6f} last "
           f"{losses[-1]:.6f}; this process's own first step "
           f"{own_loss:.6f} (diff {abs(losses[0] - own_loss):.3e}, tol "
           f"{STEP_LOSS_TOL:.0e}); {m['step_ms']:.3f} ms a timed step, "
@@ -3385,7 +3462,8 @@ def run_torch_trainer(report):
           f"{h2d['block_pageable']:.3f}; worker launches {m['launches']}",
           flush=True)
     report["torch_trainer"] = dict(
-        m, fit_s=fit_s, own_first_loss=own_loss, tokens_per_s_ratio=ratio,
+        m, fit_s=fit_s, exit_wait_s=exit_wait_s, own_first_loss=own_loss,
+        tokens_per_s_ratio=ratio,
         wait_ms_p50=float(np.percentile(waits, 50)),
         wait_ms_p90=float(np.percentile(waits, 90)), h2d_gbps=h2d,
         batch_bytes=batch_bytes, source_sha256=source_sha)
@@ -3401,6 +3479,497 @@ def run_torch_trainer(report):
     if m["launches"] != want:
         raise SystemExit(f"worker launches {m['launches']}, want {want}")
     return m["launches"]
+
+
+# Tune on the card (``run_tune``): GPT-2 124M trials, each training in its
+# own process through the kernels on rows of ids below TUNE_IDS (the loss
+# can fall from ~10.9 toward ln 512 within tens of steps, so the learning
+# rate decides the ranking), the rows of step i the i-th BATCH rows of
+# default_rng(TUNE_SEED).  (a) ASHA over 4 learning rates, two trials at
+# a time, each at half the card: the rates run from the strongest down,
+# so the weak trials reach each rung after its history holds the strong
+# ones' (the first arrival at a rung always continues).  (b) a trainer
+# inside a trial, its worker killed once at step TUNE_KILL_AT.  (c) PBT at
+# GPT-2's width cut to TUNE_PBT_LAYERS layers, for time.
+TUNE_SEED = 23
+TUNE_IDS = 512
+TUNE_ASHA_LRS = [6e-4, 1e-4, 1e-5, 1e-6]
+TUNE_ASHA = {"max_t": 24, "grace_period": 6, "reduction_factor": 2}
+TUNE_TRAINER_STEPS, TUNE_CKPT_EVERY, TUNE_KILL_AT = 16, 4, 10
+TUNE_PBT_LAYERS, TUNE_PBT_STEPS, TUNE_PBT_INTERVAL = 4, 18, 6
+TUNE_PBT_LRS = [1e-6, 6e-4]
+TUNE_START_S = 120  # a trial's wait for its peer at the start barrier
+
+
+def tune_rows(step: int):
+    """The token rows of step ``step`` (every trial's, every attempt's)."""
+    import numpy as np
+
+    rows = np.random.default_rng(TUNE_SEED).integers(
+        0, TUNE_IDS, ((step + 1) * BATCH, SEQ + 1))
+    return rows[step * BATCH:]
+
+
+def tune_gpt2_state(cfg, lr, device):
+    """run_trainer's GPT-2 step and a fresh state from TUNE_SEED (every
+    trial and this process start from the same parameters)."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+
+    opt = train_step.default_optimizer(learning_rate=lr, warmup_steps=1)
+    gen = torch.Generator(device=device).manual_seed(TUNE_SEED)
+    state = train_step.create_train_state(gpt2, cfg, opt, gen, device=device)
+    return state, train_step.make_train_step(gpt2, cfg, opt,
+                                             attn_impl="flash")
+
+
+def tune_step_record(step, state, i, device, start):
+    """One step on rows ``i``; its loss (computed before the update), its
+    launches in this process, and where it ran."""
+    import torch
+
+    before = launch_counts()
+    state, m = step(state, torch.from_numpy(tune_rows(i)).to(device))
+    loss = m["loss"].item()  # waits for the step
+    return state, {
+        "step": i, "loss": loss, "t": time.time(),
+        "launches": {k: n - before[k] for k, n in launch_counts().items()},
+        "pid": os.getpid(), "device": f"cuda:{torch.cuda.current_device()}",
+        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "restored_from": start}
+
+
+def tune_gpt2_trainable(config):
+    """(a) and (c)'s trial: GPT-2 at ``config["cfg"]`` on the card its
+    grant leaves visible, from TUNE_SEED's parameters or the checkpoint
+    Tune hands it (PBT's exploit), ``config["steps"]`` steps, each
+    reported (``training_iteration`` is the step's index + 1) and logged
+    to ``steps.jsonl`` in the trial's directory; a checkpoint every
+    ``config["ckpt_every"]`` steps.  Trials with ``config["barrier"]``
+    wait there until two have started: the first two start their steps
+    together."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train.checkpoint import (
+        Checkpoint, load_pytree, save_pytree)
+    from ray_tpu_torch.tune import trial as trial_mod
+
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    state, step = tune_gpt2_state(config["cfg"], config["lr"], device)
+    start, ckpt = 0, tune.get_checkpoint()
+    if ckpt is not None:
+        state = load_pytree(ckpt.path, state)
+        start = int(state["step"])
+    elif config.get("barrier"):
+        open(os.path.join(config["barrier"], str(os.getpid())), "w").close()
+        deadline = time.time() + TUNE_START_S
+        while len(os.listdir(config["barrier"])) < 2:
+            if time.time() > deadline:
+                raise RuntimeError("the other trial did not start")
+            time.sleep(0.05)
+    log = os.path.join(trial_mod.get_session().trial_dir, "steps.jsonl")
+    for i in range(start, config["steps"]):
+        state, rec = tune_step_record(step, state, i, device, start)
+        rec.update(lr=config["lr"], t_enter=t_enter)
+        with open(log, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        d = None
+        if config.get("ckpt_every") and (i + 1) % config["ckpt_every"] == 0:
+            d = tempfile.mkdtemp(dir=config["tmp"])
+            save_pytree(d, state)
+        try:
+            tune.report({"loss": rec["loss"], "training_iteration": i + 1},
+                        checkpoint=Checkpoint(d) if d else None)
+        finally:
+            if d:
+                shutil.rmtree(d)
+
+
+def tune_trainer_loop(config):
+    """(b)'s train function, in the trainer's worker actor: the GPT-2 124M
+    step from TUNE_SEED's parameters or the latest committed checkpoint,
+    ``config["steps"]`` steps, each reported and logged to
+    ``steps.jsonl`` in the experiment's directory (a report the process's
+    death loses stays in the log), a checkpoint every
+    ``config["ckpt_every"]``; on the first attempt its process exits at
+    step ``config["kill_at"]``, once the controller has polled every
+    report before it (the marker file makes sure of once)."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.checkpoint import load_pytree, save_pytree
+
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = train.get_context()
+    device = torch.device(ctx.get_device())
+    state, step = tune_gpt2_state(config["cfg"], config["lr"], device)
+    start, ckpt, restore_s = 0, train.get_checkpoint(), None
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = load_pytree(ckpt.path, state)
+        restore_s = time.perf_counter() - t0
+        start = int(state["step"])
+    for i in range(start, config["steps"]):
+        if i == config["kill_at"] and not os.path.exists(config["marker"]):
+            while not ctx.outbox.empty():
+                time.sleep(0.01)
+            open(config["marker"], "w").close()
+            os._exit(1)  # the worker's process dies mid-run
+        state, rec = tune_step_record(step, state, i, device, start)
+        rec.update(t_enter=t_enter, restore_s=restore_s,
+                   device_name=ctx.get_device())
+        ckpt = None
+        if (i + 1) % config["ckpt_every"] == 0:
+            d = os.path.join(ctx.experiment_dir, f"ckpt-{i + 1:06d}")
+            t0 = time.perf_counter()
+            rec["save_bytes"] = save_pytree(d, state)
+            rec["save_s"] = time.perf_counter() - t0
+            ckpt = train.Checkpoint(d)
+        with open(os.path.join(ctx.experiment_dir, "steps.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        train.report(rec, checkpoint=ckpt)
+
+
+def tune_trainer_trainable(config):
+    """(b)'s trial: ``TorchTrainer`` at one GPU worker, whose callback
+    passes each committed report to ``tune.report``; the trial reports
+    the committed records' steps, the trainer's result, and whether this
+    process ever created a CUDA context, last."""
+    import torch
+
+    from ray_tpu_torch import train, tune
+
+    seen = []
+
+    def on_report(index, metrics, checkpoint):
+        seen.append((index, metrics["step"]))
+        tune.report({"loss": metrics["loss"],
+                     "training_iteration": metrics["step"] + 1})
+
+    result = train.TorchTrainer(
+        tune_trainer_loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(
+            name="trainer", storage_path=config["tmp"],
+            failure_config=train.FailureConfig(max_failures=1)),
+        callbacks=[on_report]).fit()
+    tune.report({"committed": seen, "pid": os.getpid(),
+                 "error": None if result.error is None else str(result.error),
+                 "checkpoint": (result.checkpoint.path if result.checkpoint
+                                else None),
+                 "cuda_initialized": torch.cuda.is_initialized()})
+
+
+def tune_log(path: str) -> list:
+    """The step records logged to ``steps.jsonl`` under ``path``."""
+    with open(os.path.join(path, "steps.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_tune(report):
+    """Tune on the card (phase 10b, after ``run_torch_trainer``): trials
+    are actors of the port's runtime, each training GPT-2 in its own
+    process through the kernels.  (a) ``ASHAScheduler(max_t=24,
+    grace_period=6, reduction_factor=2)`` over 4 learning rates,
+    ``resources_per_trial={"num_cpus": 1, "num_gpus": 0.5}``, 2 at a
+    time: all end without an error, one at least stops at a rung before
+    24, every first loss equals this process's own first step on the same
+    parameters and rows, 1e-6 ranks last, the best's loss falls, 12
+    launches of each kernel a step in each trial's process, each on
+    ``cuda:0`` with ``CUDA_VISIBLE_DEVICES`` 0; each trial's start-up,
+    steps and stop, and the concurrent pair's tokens/s against
+    ``run_trainer``'s.  (b) one trial (1 CPU, no GPU) running
+    ``TorchTrainer`` at one GPU worker with ``FailureConfig(max_failures=
+    1)``, a checkpoint every 4 of 16 steps, the worker's process exiting
+    at step 10 once: 16 steps, the second attempt from the step-8
+    checkpoint, its first loss equal to the first attempt's at that step,
+    the killed process gone, no CUDA context in the trial's process, 12
+    launches a step in the worker; seconds to a new worker, checkpoint
+    save GB/s, steps lost.  (c) ``PopulationBasedTraining(
+    perturbation_interval=6)`` over 2 trials at 4 layers, 18 steps, a
+    checkpoint at each interval: the weak trial exploits, and its first
+    loss after the restore equals the donor's at that step.  Every process
+    that held the card has exited when the phase ends.  Returns the
+    kernels' launches in the trials' and the worker's processes."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import RunConfig
+
+    cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)  # run_trainer's
+    t_phase = time.monotonic()
+    tmp = checkpoint_dir(16 << 30, "tune")
+    res, card_pids = {}, set()
+    launches = {k: 0 for k in BF16_KERNELS}
+    want_step = {k: cfg.n_layers for k in BF16_KERNELS}
+
+    def add_launches(recs):
+        for rec in recs:
+            for k, n in rec["launches"].items():
+                launches[k] += n
+            card_pids.add(rec["pid"])
+
+    # this process's own first step on the trials' parameters and rows
+    state, step = tune_gpt2_state(cfg, TUNE_ASHA_LRS[0], "cuda")
+    _, own = tune_step_record(step, state, 0, "cuda", 0)
+    del state, step
+    torch.cuda.empty_cache()
+
+    node = card_runtime()
+    try:
+        # (a) ASHA over function trials on the card
+        t0 = time.time()
+        os.makedirs(os.path.join(tmp, "asha_barrier"))
+        grid = tune.Tuner(
+            tune_gpt2_trainable,
+            param_space={"lr": tune.grid_search(TUNE_ASHA_LRS), "cfg": cfg,
+                         "steps": TUNE_ASHA["max_t"],
+                         "barrier": os.path.join(tmp, "asha_barrier")},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=tune.ASHAScheduler(**TUNE_ASHA),
+                max_concurrent_trials=2,
+                resources_per_trial={"num_cpus": 1, "num_gpus": 0.5}),
+            run_config=RunConfig(name="asha", storage_path=tmp)).fit()
+        fit_s = time.time() - t0
+        if grid.errors:
+            raise SystemExit(f"tune (a): trials failed: {grid.errors}")
+        trials = []
+        for r in grid:
+            recs = tune_log(r.path)
+            add_launches(recs)
+            # a trial ASHA stops runs on until the stop reaches it: its
+            # log may hold a step or two past the rung
+            trials.append({
+                "lr": r.config["lr"], "steps": len(recs),
+                "stop_iteration": recs[-1]["step"] + 1,
+                "first_loss": recs[0]["loss"], "last_loss": recs[-1]["loss"],
+                "best_loss": r.metrics["loss"],  # the tuner's best result
+                "enter_after_fit_s": recs[0]["t_enter"] - t0,
+                "to_first_step_s": recs[0]["t"] - recs[0]["t_enter"],
+                "pid": recs[0]["pid"],
+                "devices": sorted({(r["device"], r["visible"])
+                                   for r in recs}),
+                "launches_ok": all(r["launches"] == want_step
+                                   for r in recs)})
+        # the concurrent pair (the first two launched, which start their
+        # steps together): tokens of both trials' steps that ended inside
+        # the window both were stepping
+        pair = [tune_log(r.path) for r in grid][:2]
+        w0 = max(recs[0]["t"] for recs in pair)
+        w1 = min(recs[-1]["t"] for recs in pair)
+        if w1 <= w0:
+            raise SystemExit("tune (a): the first two trials never stepped "
+                             "at the same time")
+        n_steps = sum(w0 < r["t"] <= w1 for recs in pair for r in recs)
+        pair_tok_s = n_steps * BATCH * SEQ / (w1 - w0)
+        ranked = sorted(trials, key=lambda t: t["best_loss"])
+        best = ranked[0]
+        d_first = max(abs(t["first_loss"] - own["loss"]) for t in trials)
+        res["a"] = {"trials": trials, "fit_s": fit_s,
+                    "own_first_loss": own["loss"],
+                    "first_loss_max_diff": d_first,
+                    "concurrent_tokens_per_s": pair_tok_s,
+                    "concurrent_window_s": w1 - w0,
+                    "concurrent_steps": n_steps,
+                    "ranking": [t["lr"] for t in ranked],
+                    "best": grid.get_best_result().config["lr"]}
+        ratio = pair_tok_s / report["trainer"]["tokens_per_s"]
+        print(f"tune (a): ASHA over GPT-2 124M trials ({fit_s:.1f} s for "
+              f"fit): " + "; ".join(
+                  f"lr {t['lr']:g}: {t['steps']} steps, stopped at "
+                  f"{t['stop_iteration']}, loss {t['first_loss']:.4f} -> "
+                  f"{t['last_loss']:.4f}, entered {t['enter_after_fit_s']:.1f}"
+                  f" s after fit began, {t['to_first_step_s']:.1f} s to its "
+                  f"first step, pid {t['pid']} on {t['devices']}"
+                  for t in trials)
+              + f"; this process's first loss {own['loss']:.6f} (max diff "
+              f"{d_first:.3e}, tol {STEP_LOSS_TOL:.0e}); ranking by best "
+              f"loss {res['a']['ranking']}; the concurrent pair "
+              f"{pair_tok_s:.1f} tokens/s over {w1 - w0:.2f} s = "
+              f"{ratio:.4f} of run_trainer's "
+              f"{report['trainer']['tokens_per_s']:.1f}", flush=True)
+        if not (len(trials) == 4 and all(
+                t["stop_iteration"] <= TUNE_ASHA["max_t"] for t in trials)):
+            raise SystemExit(f"tune (a): not every trial ended: {trials}")
+        if not any(t["stop_iteration"] < TUNE_ASHA["max_t"] for t in trials):
+            raise SystemExit("tune (a): no trial stopped at a rung")
+        if d_first > STEP_LOSS_TOL:
+            raise SystemExit("tune (a): a trial's first loss disagrees with "
+                             "this process's step on the same parameters")
+        if ranked[-1]["lr"] != 1e-6:
+            raise SystemExit(f"tune (a): lr 1e-6 does not rank last: "
+                             f"{res['a']['ranking']}")
+        if not best["last_loss"] < best["first_loss"]:
+            raise SystemExit("tune (a): the best trial's loss did not fall")
+        if not all(t["launches_ok"] for t in trials):
+            raise SystemExit(f"tune (a): a trial's step did not launch each "
+                             f"kernel {cfg.n_layers} times")
+        if not all(t["devices"] == [("cuda:0", "0")] for t in trials):
+            raise SystemExit("tune (a): a trial did not run on cuda:0 under "
+                             "its grant's CUDA_VISIBLE_DEVICES")
+
+        # (b) a trainer inside a trial, through its worker's death
+        marker = os.path.join(tmp, "killed")
+        grid = tune.Tuner(
+            tune_trainer_trainable,
+            param_space={"cfg": cfg, "lr": 6e-4, "tmp": tmp, "marker": marker,
+                         "steps": TUNE_TRAINER_STEPS,
+                         "ckpt_every": TUNE_CKPT_EVERY,
+                         "kill_at": TUNE_KILL_AT},
+            tune_config=tune.TuneConfig(resources_per_trial={"num_cpus": 1}),
+            run_config=RunConfig(name="trainer_trial", storage_path=tmp)).fit()
+        if grid.errors:
+            raise SystemExit(f"tune (b): the trial failed: {grid.errors}")
+        out = grid[0].metrics
+        recs = tune_log(os.path.join(tmp, "trainer"))
+        add_launches(recs)
+        first = [r for r in recs if r["restored_from"] == 0]
+        second = [r for r in recs if r["restored_from"] > 0]
+        killed_pid = first[0]["pid"]
+        card_pids.add(killed_pid)
+        at = {r["step"]: r["loss"] for r in first}
+        restored = second[0]["restored_from"] if second else None
+        saves = [r for r in recs if r.get("save_s")]
+        gbps = [r["save_bytes"] / r["save_s"] / 1e9 for r in saves]
+        to_new_s = second[0]["t_enter"] - os.path.getmtime(marker)
+        d_restore = (abs(second[0]["loss"] - at[restored])
+                     if restored in at else None)
+        res["b"] = {"error": out["error"],
+                    "steps": sorted({r["step"] for r in recs}),
+                    "committed": out["committed"],
+                    "restored_from": restored, "killed_pid": killed_pid,
+                    "killed_gone": pid_exited(killed_pid),
+                    "worker_pids": sorted({r["pid"] for r in recs}),
+                    "trial_pid": out["pid"],
+                    "trial_cuda_initialized": out["cuda_initialized"],
+                    "seconds_to_new_worker": to_new_s,
+                    "restore_s": second[0]["restore_s"] if second else None,
+                    "save_gbps": gbps, "save_bytes": saves[0]["save_bytes"],
+                    "steps_lost": TUNE_KILL_AT - (restored or 0),
+                    "restore_loss_diff": d_restore,
+                    "devices": sorted({(r["device_name"], r["visible"])
+                                       for r in recs}),
+                    "launches_ok": all(r["launches"] == want_step
+                                       for r in recs)}
+        print(f"tune (b): TorchTrainer in a trial (pid {out['pid']}, CUDA "
+              f"context there: {out['cuda_initialized']}), its worker "
+              f"(pid {killed_pid}) exiting at step {TUNE_KILL_AT}: restored "
+              f"from step {restored} in a new worker (pids "
+              f"{res['b']['worker_pids']}) {to_new_s:.2f} s after the death "
+              f"(restore {res['b']['restore_s']} s); first loss after the "
+              f"restore {second[0]['loss'] if second else None} vs "
+              f"{at.get(restored)} (diff {d_restore}); checkpoints of "
+              f"{saves[0]['save_bytes'] / 1e9:.3f} GB saved at "
+              + ", ".join(f"{g:.3f}" for g in gbps)
+              + f" GB/s; steps lost {res['b']['steps_lost']}; steps "
+              f"logged {len(recs)}, committed (index, step) "
+              f"{out['committed']}; the killed process gone: "
+              f"{res['b']['killed_gone']}", flush=True)
+        if (out["error"] is not None
+                or res["b"]["steps"] != list(range(TUNE_TRAINER_STEPS))
+                or out["committed"][-1][1] != TUNE_TRAINER_STEPS - 1):
+            raise SystemExit(f"tune (b): the trainer did not end with "
+                             f"{TUNE_TRAINER_STEPS} steps: {res['b']}")
+        if restored != 2 * TUNE_CKPT_EVERY:
+            raise SystemExit(f"tune (b): the second attempt started from "
+                             f"step {restored}, not the step-8 checkpoint")
+        if d_restore is None or d_restore > STEP_LOSS_TOL:
+            raise SystemExit("tune (b): the first loss after the restore "
+                             "disagrees with the first attempt's")
+        if not res["b"]["killed_gone"]:
+            raise SystemExit("tune (b): the killed worker's process lives")
+        if out["cuda_initialized"]:
+            raise SystemExit("tune (b): the trial's process created a CUDA "
+                             "context")
+        if not (res["b"]["launches_ok"]
+                and res["b"]["devices"] == [("cuda:0", "0")]):
+            raise SystemExit(f"tune (b): the worker did not launch each "
+                             f"kernel {cfg.n_layers} times a step on cuda:0")
+
+        # (c) PBT across processes, at 4 layers
+        pbt_cfg = dataclasses.replace(cfg, n_layers=TUNE_PBT_LAYERS)
+        barrier = os.path.join(tmp, "pbt_barrier")
+        os.makedirs(barrier)
+        grid = tune.Tuner(
+            tune_gpt2_trainable,
+            param_space={"lr": tune.grid_search(TUNE_PBT_LRS), "cfg": pbt_cfg,
+                         "steps": TUNE_PBT_STEPS,
+                         "ckpt_every": TUNE_PBT_INTERVAL, "tmp": tmp,
+                         "barrier": barrier},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=tune.PopulationBasedTraining(
+                    perturbation_interval=TUNE_PBT_INTERVAL,
+                    hyperparam_mutations={"lr": [3e-4, 6e-4, 1e-3]},
+                    seed=TUNE_SEED),
+                max_concurrent_trials=2,
+                resources_per_trial={"num_cpus": 1, "num_gpus": 0.5}),
+            run_config=RunConfig(name="pbt", storage_path=tmp)).fit()
+        if grid.errors:
+            raise SystemExit(f"tune (c): trials failed: {grid.errors}")
+        logs = [tune_log(r.path) for r in grid]
+        for recs in logs:
+            add_launches(recs)
+        weak, donor = (logs if logs[0][0]["lr"] == TUNE_PBT_LRS[0]
+                       else logs[::-1])
+        after = [r for r in weak if r["restored_from"] > 0]
+        donor_at = {r["step"]: r["loss"] for r in donor
+                    if r["restored_from"] == 0}
+        s0 = after[0]["restored_from"] if after else None
+        d_pbt = (abs(after[0]["loss"] - donor_at[s0])
+                 if after and s0 in donor_at else None)
+        res["c"] = {"layers": TUNE_PBT_LAYERS,
+                    "exploits": len({r["pid"] for r in after}),
+                    "restored_from": sorted({r["restored_from"]
+                                             for r in after}),
+                    "weak_lrs": sorted({r["lr"] for r in weak}),
+                    "first_loss_after_restore": (after[0]["loss"] if after
+                                                 else None),
+                    "donor_loss_at_step": donor_at.get(s0),
+                    "diff": d_pbt,
+                    "pids": sorted({r["pid"] for recs in logs for r in recs})}
+        print(f"tune (c): PBT over 2 GPT-2 trials at {TUNE_PBT_LAYERS} "
+              f"layers: the weak trial (lr {TUNE_PBT_LRS[0]:g}) exploited "
+              f"{res['c']['exploits']} time(s), restored from steps "
+              f"{res['c']['restored_from']} with lrs {res['c']['weak_lrs']}; "
+              f"its first loss after the restore "
+              f"{res['c']['first_loss_after_restore']} vs the donor's "
+              f"{res['c']['donor_loss_at_step']} at that step (diff "
+              f"{d_pbt}); processes {res['c']['pids']}", flush=True)
+        if not after:
+            raise SystemExit("tune (c): the weak trial never exploited")
+        if d_pbt is None or d_pbt > STEP_LOSS_TOL:
+            raise SystemExit("tune (c): the weak trial's first loss after "
+                             "the restore disagrees with the donor's")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["exit_wait_s"] = wait_exited(card_pids, "tune")
+    res["launches"] = launches
+    res["phase_s"] = time.monotonic() - t_phase
+    report["tune"] = res
+    print(f"tune: launches in the trials' and the worker's processes "
+          f"{launches}; the {len(card_pids)} processes that held the card "
+          f"exited {res['exit_wait_s']:.2f} s after the shutdown; session "
+          f"{node.session_dir}; phase {res['phase_s']:.1f} s", flush=True)
+    return launches
 
 
 # Mixtral 8x7B's widths (MoEConfig.mixtral_8x7b()) cut to one layer; one
@@ -3644,8 +4213,12 @@ def run_moe_trainer(report):
     if not math.isfinite(final_loss):
         raise SystemExit("the MoE trainer's loss is not finite")
 
-    # (e) where one step's device time goes (outside the counted run)
-    rows = device_events(lambda: step(state, tokens))
+    # (e) where one step's device time goes (outside the counted run); a
+    # window that lost one of the step's kernel events is profiled again
+    want_profiled = {**{BF16_KERNELS[k]: n for k, n in want.items()},
+                     **{k: 0 for k in SCALAR_KERNELS}}
+    rows = device_events(lambda: step(state, tokens),
+                         complete=profiled_as(want_profiled))
     busy = sum(r[1] for r in rows)
     profiled = kernel_counts(rows, (*BF16_KERNELS.values(), *SCALAR_KERNELS))
     attn_ms = {k: sum(t for name, t, _ in rows if k in name)
@@ -3657,8 +4230,6 @@ def run_moe_trainer(report):
           + "; top: " + "; ".join(
               f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:8]),
           flush=True)
-    want_profiled = {**{BF16_KERNELS[k]: n for k, n in want.items()},
-                     **{k: 0 for k in SCALAR_KERNELS}}
     if profiled != want_profiled:
         raise SystemExit(f"the profiled MoE step launched {profiled}, want "
                          f"{want_profiled}")
@@ -3799,7 +4370,7 @@ def chunked_plain_attention():
     return attn
 
 
-def checkpoint_dir(need: int) -> str:
+def checkpoint_dir(need: int, label: str = "llama3") -> str:
     """A directory with ``need`` bytes free: the process's temporary
     directory, else the checkout's git-ignored ``_run/``."""
     import shutil
@@ -3812,12 +4383,12 @@ def checkpoint_dir(need: int) -> str:
         os.makedirs(path, exist_ok=True)
         free[path] = shutil.disk_usage(path).free
         if free[path] >= need:
-            print(f"llama3 checkpoint directory {path}: "
+            print(f"{label} checkpoint directory {path}: "
                   f"{free[path] / 1e9:.1f} GB free, {need / 1e9:.1f} GB "
                   "needed", flush=True)
-            return tempfile.mkdtemp(prefix="llama3_", dir=path)
+            return tempfile.mkdtemp(prefix=f"{label}_", dir=path)
     raise SystemExit(f"no directory has {need / 1e9:.1f} GB free for the "
-                     "Llama-3 checkpoint: " + ", ".join(
+                     f"{label} checkpoints: " + ", ".join(
                          f"{p} {b / 1e9:.1f} GB" for p, b in free.items()))
 
 
@@ -3829,9 +4400,10 @@ def dir_bytes(path: str) -> int:
 def run_llama3_trainer(report):
     """The Llama-3 8B pretraining recipe at Llama-3 8B's widths cut to four
     layers, batch 2 x seq 8192: (a) ``train_llama3_8b`` through
-    ``DataParallelTrainer``, the controller and a spawned worker, its
-    committed checkpoint and metrics, and a dry-geometry run whose
-    checkpoint is restored onto the card; (b) the same step in this
+    ``DataParallelTrainer``, the controller and a worker actor of the
+    port's runtime, its committed checkpoint and metrics, and a
+    dry-geometry run whose checkpoint is restored onto the card (once the
+    worker's process has left the card); (b) the same step in this
     process on a world-size-1 NCCL mesh (``create_train_state`` /
     ``make_train_step`` with ``mesh``), where the launch counters can be
     read: the first step against the plain attention, the loss falling,
@@ -3845,6 +4417,7 @@ def run_llama3_trainer(report):
     import torch
     import torch.distributed as dist
 
+    import ray_tpu_torch as rt
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     from ray_tpu_torch.train import step as train
@@ -3879,12 +4452,28 @@ def run_llama3_trainer(report):
            "reckoned_checkpoint_bytes": ckpt_reckoned,
            "batch": LLAMA3_BATCH, "seq": LLAMA3_SEQ}
     try:
-        # (a) the entry point, in a spawned worker
+        # (a) the entry point, its worker an actor of the port's runtime
+        card_runtime()
+        try:
+            t0 = time.monotonic()
+            result = train_llama3_8b(
+                num_workers=1, steps=LLAMA3_STEPS, n_layers=LLAMA3_LAYERS,
+                mesh={"fsdp": 1, "tp": 1},
+                storage_path=os.path.join(tmp, "full"))
+            fit_s = time.monotonic() - t0
+            dry = train_llama3_8b(num_workers=1, dry_run=True, steps=2,
+                                  ckpt_every=2, seq_len=64,
+                                  storage_path=os.path.join(tmp, "dry"))
+        finally:
+            rt.shutdown()
+        # the worker's process has left the card once its memory is free
         t0 = time.monotonic()
-        result = train_llama3_8b(
-            num_workers=1, steps=LLAMA3_STEPS, n_layers=LLAMA3_LAYERS,
-            mesh={"fsdp": 1, "tp": 1}, storage_path=os.path.join(tmp, "full"))
-        fit_s = time.monotonic() - t0
+        while torch.cuda.mem_get_info()[0] < free - (1 << 30):
+            if time.monotonic() - t0 > 60:
+                raise SystemExit("llama3: the worker's process still holds "
+                                 "the card after the runtime's shutdown")
+            time.sleep(0.2)
+        out["exit_wait_s"] = time.monotonic() - t0
         if result.error is not None:
             raise SystemExit(f"train_llama3_8b failed: {result.error}")
         m = result.metrics
@@ -3912,9 +4501,6 @@ def run_llama3_trainer(report):
         out["entry_point"] = dict(m, fit_s=fit_s,
                                   checkpoint_disk_bytes=ckpt_bytes)
         shutil.rmtree(os.path.join(tmp, "full"))
-        dry = train_llama3_8b(num_workers=1, dry_run=True, steps=2,
-                              ckpt_every=2, seq_len=64,
-                              storage_path=os.path.join(tmp, "dry"))
         if dry.error is not None:
             raise SystemExit(f"the dry run failed: {dry.error}")
 
@@ -4051,8 +4637,12 @@ def _llama3_steps(report, cfg, mesh, n_params, n_tok, need_mem):
     if not math.isfinite(final_loss):
         raise SystemExit("the Llama-3 trainer's loss is not finite")
 
-    # where one step's device time goes (outside the counted run)
-    rows = device_events(lambda: step(state, tokens))
+    # where one step's device time goes (outside the counted run); a
+    # window that lost one of the step's kernel events is profiled again
+    want_profiled = {**{BF16_KERNELS[k]: n for k, n in want.items()},
+                     **{k: 0 for k in SCALAR_KERNELS}}
+    rows = device_events(lambda: step(state, tokens),
+                         complete=profiled_as(want_profiled))
     busy = sum(r[1] for r in rows)
     profiled = kernel_counts(rows, (*BF16_KERNELS.values(), *SCALAR_KERNELS))
     attn_ms = {k: sum(t for name, t, _ in rows if k in name)
@@ -4064,8 +4654,6 @@ def _llama3_steps(report, cfg, mesh, n_params, n_tok, need_mem):
           + "; top: " + "; ".join(
               f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in rows[:12]),
           flush=True)
-    want_profiled = {**{BF16_KERNELS[k]: n for k, n in want.items()},
-                     **{k: 0 for k in SCALAR_KERNELS}}
     if profiled != want_profiled:
         raise SystemExit(f"the profiled Llama-3 step launched {profiled}, "
                          f"want {want_profiled}")
@@ -5128,6 +5716,7 @@ def main() -> int:
     serve_runtime_launches = run_serve(report)
     trainer_launches = run_trainer(report)
     torch_trainer_launches = run_torch_trainer(report)
+    tune_launches = run_tune(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
     mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
@@ -5149,6 +5738,7 @@ def main() -> int:
         row = first[name]
         by_path = {"trainer": trainer_launches[name],
                    "torch_trainer": torch_trainer_launches[name],
+                   "tune": tune_launches[name],
                    "moe_trainer": moe_launches[name],
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":

@@ -16,7 +16,9 @@ The Scheduler class wires them together and serves the node's socket (worker
 registration, task completion, peer spillback, control RPCs).  GPU
 specifics: ``GPU`` is a first-class resource, and a worker granted GPUs
 receives ``CUDA_VISIBLE_DEVICES`` so concurrent processes don't fight over
-the same card.  The listen address may be a unix path (same-host) or
+the same card; a fractional request is granted a share of one card (the
+fullest partly used card it fits on, else a free one) and sees that card
+alone.  The listen address may be a unix path (same-host) or
 "host:port" (multi-host TCP) — see protocol.connect_addr.
 """
 
@@ -250,6 +252,9 @@ class Scheduler:
         # CUDA_VISIBLE_DEVICES.
         self._free_chips: list[int] = list(
             range(int(node_resources.get("GPU", 0))))
+        # share in use of each card granted to fractional requests; such
+        # a card is not in _free_chips until its last share returns
+        self._chip_shares: dict[int, float] = {}
         self._shutdown = False
 
         # -- cluster state (multi-node) ---------------------------------
@@ -3213,6 +3218,31 @@ class Scheduler:
             self._free_chips.extend(worker.held_chips)
             self._free_chips.sort()
             worker.held_chips = []
+        if worker.held_share is not None:
+            chip, share = worker.held_share
+            left = self._chip_shares.get(chip, 0.0) - share
+            if left <= 1e-9:
+                self._chip_shares.pop(chip, None)
+                self._free_chips.append(chip)
+                self._free_chips.sort()
+            else:
+                self._chip_shares[chip] = left
+            worker.held_share = None
+
+    def _grant_share(self, share: float) -> Optional[int]:
+        """The card for a fractional GPU request: the fullest partly used
+        card it fits on, else a free card; None when neither exists."""
+        fits = [c for c, used in self._chip_shares.items()
+                if used + share <= 1.0 + 1e-9]
+        if fits:
+            chip = max(fits, key=lambda c: (self._chip_shares[c], -c))
+        elif self._free_chips:
+            chip = self._free_chips.pop(0)
+            self._chip_shares[chip] = 0.0
+        else:
+            return None
+        self._chip_shares[chip] += share
+        return chip
 
     def _fail_task(self, spec: TaskSpec, exc: Exception):
         self._record_task_event(spec, "FAILED", ok=False)
@@ -3590,6 +3620,11 @@ class Scheduler:
             chips = [self._free_chips.pop(0) for _ in range(n_chips)]
             w.held_chips.extend(chips)
             env["CUDA_VISIBLE_DEVICES"] = ",".join(str(i) for i in chips)
+        elif 0 < gpus < 1:
+            chip = self._grant_share(gpus)
+            if chip is not None:
+                w.held_share = (chip, gpus)
+                env["CUDA_VISIBLE_DEVICES"] = str(chip)
         try:
             w.conn.send({"t": "task", "spec": spec, "env": env})
         except OSError:

@@ -45,6 +45,7 @@ class WorkerState:
     # before victim selection (C++ owns the authoritative table).
     native_inflight: int = 0
     held_chips: list = field(default_factory=list)  # physical GPU indices
+    held_share: Optional[tuple[int, float]] = None  # (card, fraction)
     retiring: bool = False  # exits after a GPU task (worker_main)
 
 

@@ -1,10 +1,11 @@
 """Training: the sharded train step and its optimizer, the trainer, its
-controller and worker processes, checkpoints, and the Llama-3 8B recipe.
+controller and worker actors, checkpoints, and the Llama-3 8B recipe.
 
 Counterpart of ``ray_tpu/train``, less ``JaxTrainer`` (whose counterpart
 is ``DataParallelTrainer``) and the gradient-boosting trainers (no device
 compute, and neither library is installed).  A controller in the calling
-process drives one worker process per GPU; the ranks form one
+process drives one worker actor per GPU, each in a bundle of one
+placement group of the port's runtime; the ranks form one
 ``torch.distributed`` process group, build a ``DeviceMesh`` over it and
 run the sharded step (``train.step``).  Reports and checkpoints flow
 through the experiment's storage; tensor trees through

@@ -1,8 +1,9 @@
 """Worker-side training context: get_context(), report(), get_checkpoint().
 
-Counterpart of ``ray_tpu/train/context.py``.  The train function runs in
-each worker process; ``report`` commits an optional checkpoint directory
-to the experiment's storage and sends the metrics to the controller.  All
+Counterpart of ``ray_tpu/train/context.py``.  The train function runs on
+a thread of each worker actor; ``report`` commits an optional checkpoint
+directory to the experiment's storage and enqueues the metrics for the
+controller, which polls them.  All
 ranks must call report the same number of times (SPMD lockstep): the
 controller barriers on report index, which is what commits a checkpoint.
 """
@@ -10,6 +11,7 @@ controller barriers on report index, which is what commits a checkpoint.
 from __future__ import annotations
 
 import os
+import queue
 import shutil
 import threading
 from typing import Optional
@@ -27,16 +29,14 @@ class TrainContext:
         world_size: int,
         experiment_name: str,
         experiment_dir: str,
-        outbox,
-        stop_event,
         restore_checkpoint_path: Optional[str] = None,
         dataset_shards: Optional[dict] = None,
+        trial_info: Optional[dict] = None,
         start_report_index: int = 0,
         device: str = "cpu",
     ):
-        """``outbox`` takes the reports (a ``multiprocessing`` queue the
-        controller drains); ``stop_event`` is set by the controller to
-        unwind the train function at its next report."""
+        """``trial_info``: the Tune trial's ``name`` and ``id`` when the
+        trainer runs in one."""
         self.rank = rank
         self.local_rank = local_rank
         self.world_size = world_size
@@ -44,8 +44,11 @@ class TrainContext:
         self.experiment_dir = experiment_dir
         self.restore_checkpoint_path = restore_checkpoint_path
         self.dataset_shards = dataset_shards or {}
-        self.outbox = outbox
-        self.stop_event = stop_event
+        self.trial_info = trial_info or {}
+        # the reports the worker's poll drains; the controller sets
+        # stop_event to unwind the train function at its next report
+        self.outbox: "queue.Queue[dict]" = queue.Queue()
+        self.stop_event = threading.Event()
         self.device = device
         # Seeded past the previous attempt's reports so checkpoint dirs from
         # a restarted run never collide with already-committed ones.
@@ -70,9 +73,15 @@ class TrainContext:
     def get_experiment_name(self) -> str:
         return self.experiment_name
 
+    def get_trial_name(self) -> str:
+        return self.trial_info.get("name", self.experiment_name)
+
+    def get_trial_id(self) -> str:
+        return self.trial_info.get("id", "")
+
     def get_device(self) -> str:
-        """The device this worker runs on (``cuda:<local rank>`` or
-        ``cpu``)."""
+        """The device this worker runs on: ``cuda:0``, the one card its
+        grant leaves visible, or ``cpu``."""
         return self.device
 
     def get_dataset_shard(self, name: str = "train"):
@@ -144,7 +153,7 @@ def report(metrics: dict, checkpoint: Optional[Checkpoint] = None) -> None:
 
 
 class _StopTraining(BaseException):
-    """Raised inside the train function to unwind on a controller stop."""
+    """Raised inside the train thread to unwind on a controller stop."""
 
 
 def _merge_copy(src: str, dest: str):

@@ -1,15 +1,15 @@
 """TorchTrainer: a user's torch.distributed train loop on the worker group.
 
 Counterpart of ``ray_tpu/train/torch.py``.  The JAX package's wrapper
-forms a process group around the user's function, because its workers are
-runtime actors with none.  The port's workers already join one when they
-start, and set the variables a torch program reads (``MASTER_ADDR``,
+forms a process group around the user's function, because its workers
+join none.  The port's worker actors already join one in their ``setup``
+and set the variables a torch program reads (``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
 ``train/worker_group.py``).  So ``TorchTrainer`` is the
 ``DataParallelTrainer`` whose group takes ``TorchConfig``'s backend and
-timeout; it forms no second group.  The group's address is always the
-local host's: the port's workers are local processes.  ``prepare_model``
-and ``prepare_data_loader`` are the JAX package's.
+timeout; it forms no second group.  The group's address is the local
+host's: the port's clusters are one host.  ``prepare_model`` and
+``prepare_data_loader`` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ class TorchTrainer(DataParallelTrainer):
         scaling_config: Optional[ScalingConfig] = None,
         run_config: Optional[RunConfig] = None,
         datasets: Optional[dict] = None,
+        callbacks: Optional[list] = None,
     ):
         """Raises where ``scaling_config.use_gpu`` (the default) asks for
         GPUs and CUDA is not available."""
@@ -51,6 +52,7 @@ class TorchTrainer(DataParallelTrainer):
             scaling_config=scaling_config,
             run_config=run_config,
             datasets=datasets,
+            callbacks=callbacks,
         )
         if self._scaling_config.use_gpu and not torch.cuda.is_available():
             raise RuntimeError(

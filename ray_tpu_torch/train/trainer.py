@@ -2,9 +2,10 @@
 
 Counterpart of ``ray_tpu/train/trainer.py`` (``JaxTrainer``, whose alias
 is ``DataParallelTrainer``): the train function runs once per worker
-process, builds its device mesh over the group (``parallel.mesh.
+actor, builds its device mesh over the group (``parallel.mesh.
 create_mesh``) and expresses dp / fsdp / tp / sp through the sharded step
-(``train.step``).
+(``train.step``).  Like the JAX trainer it needs an initialised runtime
+(``ray_tpu_torch.init``): the workers are its actors.
 """
 
 from __future__ import annotations
@@ -24,12 +25,16 @@ class DataParallelTrainer:
         scaling_config: Optional[ScalingConfig] = None,
         run_config: Optional[RunConfig] = None,
         datasets: Optional[dict] = None,
+        callbacks: Optional[list] = None,
     ):
+        """``callbacks``: called as ``cb(index, metrics, checkpoint)`` in
+        the calling process for each report every rank delivered."""
         self._train_fn = train_loop_per_worker
         self._train_loop_config = train_loop_config
         self._scaling_config = scaling_config or ScalingConfig()
         self._run_config = run_config or RunConfig()
         self._datasets = datasets or {}
+        self._callbacks = callbacks
         self._group_options: dict = {}
 
     def _dataset_factory(self, num_shards: int) -> list:
@@ -57,6 +62,7 @@ class DataParallelTrainer:
             self._scaling_config,
             self._run_config,
             dataset_factory=factory,
+            callbacks=self._callbacks,
             group_options=self._group_options,
         )
         return controller.run()

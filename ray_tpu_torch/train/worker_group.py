@@ -1,38 +1,42 @@
-"""Worker group: one local process per worker, joined by torch.distributed.
+"""Worker group: a gang of train-worker actors on a placement group.
 
-Counterpart of ``ray_tpu/train/worker_group.py``.  The JAX package's
-workers are actors of its runtime, one per host, each driving every local
-chip through one SPMD program.  The port has no actor runtime and follows
-torch's idiom of one process per GPU: each ``TrainWorker`` is a process
-started with ``multiprocessing``'s spawn context, and the group's ranks
-form one process group (``init_process_group`` with an explicit
-``tcp://127.0.0.1:<free port>`` address, the world size and the rank;
-NCCL on the GPUs, gloo on the CPU, unless the group is given another
-backend).  Each worker also sets the variables a torch program reads
-(``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``).  The train function and its config cross to the workers
-by pickling, so the function is a module-level one.
+Counterpart of ``ray_tpu/train/worker_group.py``; that is, of the
+reference's WorkerGroup (Ray's python/ray/train/v2/_internal/execution/
+worker_group/worker_group.py:105, PG at :242, per-rank bundles at :364)
+with the thread runner (thread_runner.py) folded into the worker actor.
+Each ``TrainWorker`` is an actor of the port's runtime pinned to its
+rank's bundle of one placement group (``ScalingConfig.bundle()``:
+``{"CPU": 1, "GPU": 1}`` on the card, ``{"CPU": 1}`` with
+``use_gpu=False``).  Its ``setup`` joins the ranks' ``torch.distributed``
+process group inside the actor, with an explicit
+``tcp://127.0.0.1:<free port>`` address, the world size and the rank
+(NCCL on the GPUs, gloo on the CPU, unless the group is given another
+backend), and sets the variables a torch program reads (``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``).  Under its
+grant an actor sees only its own card, so a worker's device is
+``cuda:0`` within it.  The train function crosses to the actors by
+cloudpickle and runs on a thread of each; the controller polls their
+reports.
 """
 
 from __future__ import annotations
 
 import datetime
-import multiprocessing
 import os
-import queue
 import socket
-import time
+import threading
 import traceback
-from typing import Callable, Optional
+from typing import Any, Optional
 
+import cloudpickle
+
+import ray_tpu_torch
+from ray_tpu_torch.train import context as train_context
 from ray_tpu_torch.train.config import ScalingConfig
 
-SETUP_TIMEOUT_S = 300.0  # spawn, import torch, join the process group
-SHUTDOWN_TIMEOUT_S = 10.0  # then the process is killed
-
-
-class WorkerGroupError(RuntimeError):
-    """A worker could not be started or reached."""
+SETUP_TIMEOUT_S = 300.0  # start the actors, import torch, join the group
+POLL_TIMEOUT_S = 120.0
+SHUTDOWN_TIMEOUT_S = 5.0  # then the actors are killed
 
 
 def _free_port() -> int:
@@ -41,124 +45,101 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker_main(rank: int, local_rank: int, world_size: int, address: str,
-                 scaling: ScalingConfig, backend: str, timeout_s: float,
-                 setup: dict, inbox, outbox, stop_event) -> None:
-    """One worker process: join the group, run the train function it is
-    sent, report its end, and leave the group when told to shut down."""
-    import torch
-    import torch.distributed as dist
+class TrainWorker:
+    """Actor hosting one rank: runs the user's train fn on a thread."""
 
-    from ray_tpu_torch.train import context as train_context
+    def __init__(self):
+        self._ctx: Optional[train_context.TrainContext] = None
+        self._thread: Optional[threading.Thread] = None
+        self._done = False
+        self._error: Optional[str] = None
 
-    device = scaling.device(local_rank)
-    if scaling.use_gpu:
-        torch.cuda.set_device(local_rank)
-    host, port = address.removeprefix("tcp://").rsplit(":", 1)
-    os.environ.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank),
-                      WORLD_SIZE=str(world_size), LOCAL_RANK=str(local_rank))
-    dist.init_process_group(
-        backend, init_method=address, world_size=world_size,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s),
-        **({"device_id": torch.device(device)} if backend == "nccl" else {}))
-    ctx = train_context.TrainContext(
-        rank=rank, local_rank=local_rank, world_size=world_size,
-        outbox=outbox, stop_event=stop_event, device=device, **setup)
-    outbox.put({"status": "ready", "rank": rank})
-    try:
-        while True:
-            msg = inbox.get()
-            if msg[0] == "shutdown":
-                return
-            _, fn, config = msg
+    def setup(self, rank: int, local_rank: int, world_size: int,
+              experiment_name: str, experiment_dir: str,
+              restore_checkpoint_path: Optional[str], address: str,
+              backend: str, timeout_s: float, device: str,
+              dataset_shards_blob: Optional[bytes],
+              trial_info: Optional[dict] = None,
+              start_report_index: int = 0) -> bool:
+        """Join the process group at ``address`` and build the rank's
+        ``TrainContext``."""
+        import torch
+        import torch.distributed as dist
+
+        shards = (cloudpickle.loads(dataset_shards_blob)
+                  if dataset_shards_blob else None)
+        if device.startswith("cuda"):
+            torch.cuda.set_device(device)
+        host, port = address.removeprefix("tcp://").rsplit(":", 1)
+        os.environ.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank),
+                          WORLD_SIZE=str(world_size),
+                          LOCAL_RANK=str(local_rank))
+        dist.init_process_group(
+            backend, init_method=address, world_size=world_size, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s),
+            **({"device_id": torch.device(device)} if backend == "nccl"
+               else {}))
+        self._ctx = train_context.TrainContext(
+            rank=rank, local_rank=local_rank, world_size=world_size,
+            experiment_name=experiment_name, experiment_dir=experiment_dir,
+            restore_checkpoint_path=restore_checkpoint_path,
+            dataset_shards=shards, trial_info=trial_info,
+            start_report_index=start_report_index, device=device)
+        return True
+
+    def run(self, fn_blob: bytes, config: Optional[dict]) -> bool:
+        fn = cloudpickle.loads(fn_blob)
+        ctx = self._ctx
+
+        def target():
+            import torch
+
+            if ctx.device.startswith("cuda"):
+                torch.cuda.set_device(ctx.device)  # per thread
             train_context._set_context(ctx)
-            error = None
             try:
-                fn(config) if config is not None else fn()
+                if config is not None:
+                    fn(config)
+                else:
+                    fn()
             except train_context._StopTraining:
                 pass
             except BaseException:
-                error = traceback.format_exc()
+                self._error = traceback.format_exc()
             finally:
+                self._done = True
                 train_context._set_context(None)
-            outbox.put({"status": "done", "rank": rank, "error": error})
-    finally:
-        dist.destroy_process_group()
 
-
-class TrainWorker:
-    """The controller's handle on one worker process."""
-
-    def __init__(self, rank: int, world_size: int, scaling: ScalingConfig,
-                 backend: Optional[str] = None,
-                 timeout_s: float = SETUP_TIMEOUT_S):
-        self.rank, self.world_size = rank, world_size
-        self._scaling = scaling
-        self._backend = backend or scaling.backend
-        self._timeout_s = timeout_s
-        self._ctx = multiprocessing.get_context("spawn")
-        self._inbox = self._ctx.Queue()
-        self._outbox = self._ctx.Queue()
-        self._stop = self._ctx.Event()
-        self._proc = None
-        self._ready = self._done = False
-        self._error: Optional[str] = None
-
-    def setup(self, address: str, setup: dict) -> None:
-        """Start the process; it joins the process group at ``address``
-        (``setup`` holds the ``TrainContext`` fields)."""
-        self._proc = self._ctx.Process(
-            target=_worker_main, daemon=True,
-            args=(self.rank, self.rank, self.world_size, address,
-                  self._scaling, self._backend, self._timeout_s, setup,
-                  self._inbox, self._outbox, self._stop))
-        self._proc.start()
-
-    def run(self, fn: Callable, config: Optional[dict]) -> None:
-        self._done, self._error = False, None
-        self._inbox.put(("run", fn, config))
+        self._done = False
+        self._error = None
+        self._thread = threading.Thread(target=target, daemon=True)
+        self._thread.start()
+        return True
 
     def poll(self) -> dict:
-        """Reports since the last poll, whether the train function ended,
-        and its traceback if it raised (or the process's end if it died)."""
+        # Snapshot done/error BEFORE draining: report() enqueues
+        # happen-before _done=True, so done-then-drain can never lose the
+        # final report.
+        done, error = self._done, self._error
         reports = []
-        while True:
-            try:
-                msg = self._outbox.get_nowait()
-            except queue.Empty:
-                break
-            if msg.get("status") == "ready":
-                self._ready = True
-            elif msg.get("status") == "done":
-                self._done, self._error = True, msg["error"]
-            else:
-                reports.append(msg)
-        if not self._done and self._proc is not None \
-                and not self._proc.is_alive():
-            self._done = True
-            self._error = (f"worker {self.rank} exited with code "
-                           f"{self._proc.exitcode}")
-        return {"reports": reports, "done": self._done, "error": self._error,
-                "ready": self._ready}
+        ctx = self._ctx
+        if ctx is not None:
+            while not ctx.outbox.empty():
+                reports.append(ctx.outbox.get_nowait())
+        return {"reports": reports, "done": done, "error": error}
 
-    def stop(self) -> None:
-        """Unwind the train function at its next ``report``."""
-        self._stop.set()
+    def stop(self) -> bool:
+        if self._ctx is not None:
+            self._ctx.stop_event.set()
+        return True
 
-    def shutdown(self) -> None:
-        """Leave the process group and end the process; one that does not
-        end within ``SHUTDOWN_TIMEOUT_S`` is killed."""
-        if self._proc is None:
-            return
-        self._inbox.put(("shutdown",))
-        deadline = time.monotonic() + SHUTDOWN_TIMEOUT_S
-        while self._proc.is_alive() and time.monotonic() < deadline:
-            self.poll()  # drain before joining
-            self._proc.join(0.1)
-        if self._proc.is_alive():
-            self._proc.kill()
-            self._proc.join(SHUTDOWN_TIMEOUT_S)
-        self._proc = None
+    def shutdown(self) -> bool:
+        """Leave the process group (the actor is killed after)."""
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return True
 
 
 class WorkerGroup:
@@ -167,12 +148,17 @@ class WorkerGroup:
     ``timeout_s`` for its collectives."""
 
     def __init__(self, scaling_config: ScalingConfig,
+                 num_workers: Optional[int] = None,
                  backend: Optional[str] = None,
                  timeout_s: float = SETUP_TIMEOUT_S):
+        """num_workers overrides the config's size: the controller's
+        elastic policy passes the per-attempt world size here."""
         self._config = scaling_config
-        self._backend, self._timeout_s = backend, timeout_s
-        self._num_workers = scaling_config.num_workers
-        self._workers: list[TrainWorker] = []
+        self._num_workers = num_workers or scaling_config.num_workers
+        self._backend = backend or scaling_config.backend
+        self._timeout_s = timeout_s
+        self._pg = None
+        self._workers: list[Any] = []
 
     @property
     def workers(self):
@@ -185,53 +171,86 @@ class WorkerGroup:
     def start(self, experiment_name: str, experiment_dir: str,
               restore_checkpoint_path: Optional[str] = None,
               dataset_shards_per_rank: Optional[list] = None,
+              trial_info: Optional[dict] = None,
               start_report_index: int = 0):
-        """Start every worker and wait until all have joined the process
-        group.  Raises ``WorkerGroupError`` if one dies or the group does
-        not form within ``SETUP_TIMEOUT_S``."""
-        import torch
+        """Reserve the bundles, start one actor in each and wait until
+        every rank has joined the process group.  Raises
+        ``PlacementGroupUnavailableError`` where the bundles cannot be
+        reserved now."""
+        from ray_tpu_torch.util.placement_group import placement_group
+        from ray_tpu_torch.util.scheduling_strategies import (
+            PlacementGroupSchedulingStrategy,
+        )
 
+        cfg = self._config
         n = self._num_workers
-        if self._config.use_gpu and n > torch.cuda.device_count():
-            raise WorkerGroupError(
-                f"{n} workers need {n} GPUs; {torch.cuda.device_count()} "
-                "visible (ScalingConfig(use_gpu=False) runs on the CPU)")
-        address = f"tcp://127.0.0.1:{_free_port()}"
-        self._workers = [TrainWorker(r, n, self._config, self._backend,
-                                     self._timeout_s) for r in range(n)]
-        for rank, w in enumerate(self._workers):
-            w.setup(address, {
-                "experiment_name": experiment_name,
-                "experiment_dir": experiment_dir,
-                "restore_checkpoint_path": restore_checkpoint_path,
-                "dataset_shards": (dataset_shards_per_rank[rank]
-                                   if dataset_shards_per_rank else None),
-                "start_report_index": start_report_index})
-        deadline = time.monotonic() + SETUP_TIMEOUT_S
-        while True:
-            polls = [w.poll() for w in self._workers]
-            dead = [p["error"] for p in polls if p["error"]]
-            if dead:
-                raise WorkerGroupError(dead[0])
-            if all(p["ready"] for p in polls):
-                return
-            if time.monotonic() > deadline:
-                raise WorkerGroupError(
-                    f"the worker group did not form in {SETUP_TIMEOUT_S} s")
-            time.sleep(0.05)
+        bundle = cfg.bundle()
+        self._pg = placement_group(
+            [dict(bundle) for _ in range(n)],
+            strategy=cfg.placement_strategy)
+        actor_cls = ray_tpu_torch.remote(TrainWorker)
+        self._workers = []
+        for rank in range(n):
+            strategy = PlacementGroupSchedulingStrategy(
+                self._pg, placement_group_bundle_index=rank)
+            opts = {"scheduling_strategy": strategy,
+                    "num_cpus": bundle.get("CPU", 0),
+                    "num_gpus": bundle.get("GPU", 0)}
+            others = {k: v for k, v in bundle.items()
+                      if k not in ("CPU", "GPU")}
+            if others:
+                opts["resources"] = others
+            self._workers.append(actor_cls.options(**opts).remote())
 
-    def run(self, train_fn: Callable, config: Optional[dict]):
-        for w in self._workers:
-            w.run(train_fn, config)
+        address = f"tcp://127.0.0.1:{_free_port()}"
+        setups = []
+        for rank, w in enumerate(self._workers):
+            shards = None
+            if dataset_shards_per_rank is not None:
+                shards = cloudpickle.dumps(dataset_shards_per_rank[rank])
+            setups.append(w.setup.remote(
+                rank, rank, n, experiment_name, experiment_dir,
+                restore_checkpoint_path, address, self._backend,
+                self._timeout_s, cfg.device, shards, trial_info,
+                start_report_index))
+        ray_tpu_torch.get(setups, timeout=SETUP_TIMEOUT_S)
+
+    def run(self, train_fn, config: Optional[dict]):
+        blob = cloudpickle.dumps(train_fn)
+        ray_tpu_torch.get([w.run.remote(blob, config) for w in self._workers],
+                          timeout=POLL_TIMEOUT_S)
 
     def poll(self) -> list[dict]:
-        return [w.poll() for w in self._workers]
+        return ray_tpu_torch.get([w.poll.remote() for w in self._workers],
+                                 timeout=POLL_TIMEOUT_S)
 
     def stop(self):
-        for w in self._workers:
-            w.stop()
+        try:
+            ray_tpu_torch.get([w.stop.remote() for w in self._workers],
+                              timeout=SHUTDOWN_TIMEOUT_S)
+        except Exception:
+            pass
 
-    def shutdown(self):
+    def shutdown(self, graceful: bool = True):
+        if graceful and self._workers:
+            try:
+                ray_tpu_torch.get(
+                    [w.shutdown.remote() for w in self._workers],
+                    timeout=SHUTDOWN_TIMEOUT_S)
+            except Exception:
+                pass
         for w in self._workers:
-            w.shutdown()
+            try:
+                ray_tpu_torch.kill(w)
+            except Exception:
+                pass
         self._workers = []
+        if self._pg is not None:
+            from ray_tpu_torch.util.placement_group import (
+                remove_placement_group,
+            )
+            try:
+                remove_placement_group(self._pg)
+            except Exception:
+                pass
+            self._pg = None

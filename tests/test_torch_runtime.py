@@ -757,10 +757,11 @@ def test_worker_with_a_cuda_context_retires_after_its_gpu_task(port):
 @pytest.mark.parametrize("lane", ["native", "python"])
 def test_ungranted_task_with_a_cuda_context_is_not_reused_for_a_grant(
         lane, port):
-    """A task without a GPU grant that set up a CUDA context (seeing every
-    device) retires its worker too: a later grant could not move that
-    context.  A plain task takes the native raylet's lane; a fractional
-    GPU request takes the Python lane, and ``int(0.5)`` grants no device.
+    """A task without a whole-device grant that set up a CUDA context
+    retires its worker too: a later grant could not move that context.
+    A plain task takes the native raylet's lane and sees every device; a
+    fractional GPU request takes the Python lane and is granted a share
+    of one device, which is all it sees.
     Tasks the raylet hands the retiring worker after its last DONE run
     elsewhere, unstarted, even with no retries left."""
     sched = port.api._global_node.scheduler
@@ -784,7 +785,10 @@ def test_ungranted_task_with_a_cuda_context_is_not_reused_for_a_grant(
         return os.getpid()
 
     retired, visible = port.get(leaves_a_context.remote(), timeout=TIMEOUT)
-    assert visible is None
+    if lane == "native":
+        assert visible is None
+    else:
+        assert visible in ("0", "1")
     assert port.get([plain.remote(i) for i in range(16)],
                     timeout=TIMEOUT) == list(range(16))
     _wait_exited(retired)

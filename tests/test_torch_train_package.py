@@ -4,15 +4,15 @@ top-K retention, the controller's report barrier and its restart after a
 worker raises, and the Llama-3 8B recipe's dry run across two gloo
 worker processes with a restore at world size 1.
 
-The trainers' workers are spawned processes; their train functions are
-this module's own (spawn pickles a function by its module and name) and
-they run with one intra-op thread each.
+The trainers' workers are actors of the port's runtime, which a module
+fixture starts; their train functions are this module's own, pickled by
+value, and they run with one intra-op thread each.
 """
 
 import os
-import queue
-import threading
+import sys
 
+import cloudpickle
 import numpy as np
 import pytest
 import torch
@@ -33,6 +33,25 @@ from ray_tpu_torch.train.config import (
 )
 from ray_tpu_torch.train.controller import TrainController
 
+# the train functions cross to the worker actors, which cannot import
+# this module
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def runtime():
+    """The port's runtime the trainers need, with a CPU for each of the
+    widest trainer's two gloo ranks and room for the next attempt's."""
+    import ray_tpu_torch as rt
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")  # the worker processes
+        rt.init(num_cpus=4, min_workers=1, object_store_memory=1 << 27)
+        try:
+            yield rt
+        finally:
+            rt.shutdown()
+
 
 @pytest.fixture
 def one_thread(monkeypatch):
@@ -46,11 +65,19 @@ def one_thread(monkeypatch):
 def test_config_validation_and_devices():
     with pytest.raises(ValueError, match="num_workers"):
         ScalingConfig(num_workers=0)
+    with pytest.raises(ValueError, match="min_workers"):
+        ScalingConfig(num_workers=2, min_workers=3)
     with pytest.raises(ValueError, match="checkpoint_score_order"):
         CheckpointConfig(checkpoint_score_order="best")
     gpu, cpu = ScalingConfig(num_workers=2), ScalingConfig(use_gpu=False)
-    assert (gpu.device(1), gpu.backend) == ("cuda:1", "nccl")
-    assert (cpu.device(0), cpu.backend) == ("cpu", "gloo")
+    # under its grant each worker actor sees its own card alone: cuda:0
+    assert (gpu.device, gpu.backend) == ("cuda:0", "nccl")
+    assert (cpu.device, cpu.backend) == ("cpu", "gloo")
+    assert gpu.bundle() == {"CPU": 1, "GPU": 1}
+    assert cpu.bundle() == {"CPU": 1}
+    assert ScalingConfig(resources_per_worker={"CPU": 2, "GPU": 2}
+                         ).bundle() == {"CPU": 2, "GPU": 2}
+    assert (gpu.placement_strategy, gpu.min_workers) == ("STRICT_PACK", None)
     run = RunConfig()
     assert run.failure_config.max_failures == 0
     assert run.checkpoint_config.num_to_keep is None
@@ -59,8 +86,7 @@ def test_config_validation_and_devices():
 def _context(tmp_path, **kw):
     return train_context.TrainContext(
         rank=1, local_rank=1, world_size=2, experiment_name="exp",
-        experiment_dir=str(tmp_path / "exp"), outbox=queue.Queue(),
-        stop_event=threading.Event(), **kw)
+        experiment_dir=str(tmp_path / "exp"), **kw)
 
 
 def test_context_and_report(tmp_path):
@@ -273,7 +299,7 @@ def test_datasets_are_sharded_per_rank(tmp_path, one_thread):
 
 def test_llama3_8b_recipe_dry_run(tmp_path, one_thread):
     """The recipe end to end at dry scale across 2 gloo workers
-    (DataParallelTrainer -> controller -> spawned workers -> fsdp x tp
+    (DataParallelTrainer -> controller -> worker actors -> fsdp x tp
     mesh, here tp 2 -> sharded step -> torch.distributed.checkpoint), then
     a restore at world size 1: the counterpart of ``tests/test_train.py``'s
     ``test_llama3_8b_recipe_dry_run``."""

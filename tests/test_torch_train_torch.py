@@ -6,19 +6,26 @@ the tests read: the environment a torch program reads, the process
 group's backend, ``prepare_model``'s DDP gradient against the full-batch
 gradient, ``prepare_data_loader``'s loader, the dataset shard's type, and
 the first loss of GPT-2 tiny over ``iter_torch_batches(device="cpu")``,
-held to JAX's ``gpt2.loss_fn`` on the same parameters and rows.
+held to JAX's ``gpt2.loss_fn`` on the same parameters and rows.  The
+workers are actors of the port's runtime, which a module fixture starts;
+the loops cross to them pickled by value.  The trainer's ``callbacks`` and
+the context's ``trial_info`` are held to the JAX package's.
 """
 
 import dataclasses
 import json
 import os
+import sys
 
+import cloudpickle
 import numpy as np
 import pytest
 import torch
 
 from ray_tpu_torch import data, train
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
+
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 WORKERS = 2
 BATCH, SEQ = 2, 16
@@ -31,9 +38,20 @@ def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")  # the spawned workers
+        mp.setenv("OMP_NUM_THREADS", "1")  # the worker processes
         yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def runtime(one_thread):
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4, min_workers=1, object_store_memory=1 << 27)
+    try:
+        yield rt
+    finally:
+        rt.shutdown()
 
 
 def _gpt2_config():
@@ -209,6 +227,80 @@ def test_torch_trainer_on_the_gpu_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.TorchTrainer(_torch_loop, scaling_config=ScalingConfig())
+
+
+# ---------------------------------------------------------------------------
+# callbacks and trial_info, against the JAX package
+
+
+def _trial_loop(config):
+    from ray_tpu_torch import train as port_train
+
+    ctx = port_train.get_context()
+    for i in range(3):
+        port_train.report({"i": i, "name": ctx.get_trial_name(),
+                           "id": ctx.get_trial_id()})
+
+
+def _jax_trial_loop(config):
+    from ray_tpu import train as jax_train
+
+    ctx = jax_train.get_context()
+    for i in range(3):
+        jax_train.report({"i": i, "name": ctx.get_trial_name(),
+                          "id": ctx.get_trial_id()})
+
+
+def test_callbacks_and_trial_info_match_jax(tmp_path, ray_cluster):
+    """A controller given ``trial_info`` and a ``callbacks`` list: the
+    workers read the trial's name and id, and each callback sees every
+    committed report's index and metrics, in order, as the JAX
+    package's does; without ``trial_info`` the name is the
+    experiment's."""
+    import ray_tpu.train as jax_train
+    from ray_tpu.train.controller import TrainController as JaxController
+    from ray_tpu_torch.train.controller import TrainController
+
+    info = {"name": "trial_00003", "id": "abc123"}
+
+    def run(controller_cls, scaling, run_config_cls, loop, trial_info,
+            name):
+        seen = []
+        result = controller_cls(
+            loop, {}, scaling, run_config_cls(
+                name=name, storage_path=str(tmp_path / name)),
+            trial_info=trial_info,
+            callbacks=[lambda i, m, c: seen.append((i, m, c))]).run()
+        assert result.error is None, result.error
+        return [(i, m, c) for i, m, c in seen], result.metrics
+
+    got, want = [], []
+    for trial_info in (info, None):
+        got.append(run(TrainController, ScalingConfig(
+            num_workers=2, use_gpu=False), RunConfig, _trial_loop,
+            trial_info, "port"))
+        want.append(run(JaxController, jax_train.ScalingConfig(
+            num_workers=2), jax_train.RunConfig, _jax_trial_loop,
+            trial_info, "jax"))
+    assert got[0] == want[0]
+    assert got[0][0] == [(i, {"i": i, "name": "trial_00003",
+                              "id": "abc123"}, None) for i in range(3)]
+    # without trial_info: the experiment's name (each package's own)
+    for (seen, _), name in ((got[1], "port"), (want[1], "jax")):
+        assert seen == [(i, {"i": i, "name": name, "id": ""}, None)
+                        for i in range(3)]
+
+
+def test_trainers_pass_callbacks_to_the_controller(tmp_path):
+    seen = []
+    result = train.TorchTrainer(
+        _trial_loop, train_loop_config={},
+        torch_config=train.TorchConfig(backend="gloo", timeout_s=120),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=False),
+        run_config=RunConfig(name="cb", storage_path=str(tmp_path)),
+        callbacks=[lambda i, m, c: seen.append((i, m["i"], c))]).fit()
+    assert result.error is None, result.error
+    assert seen == [(0, 0, None), (1, 1, None), (2, 2, None)]
 
 
 # ---------------------------------------------------------------------------
