@@ -130,6 +130,23 @@ Phases, each fatal on failure:
      seconds to a new worker, checkpoint GB/s, steps lost; (c) PBT over 2
      trials at 4 layers, 18 steps: the weak trial exploits and its first
      loss after the restore equals the donor's at that step;
+ 10c. the actor plane on the card (``run_actor_plane``): two actors at
+     ``num_gpus`` 0.5, each holding phase 9's GPT-2 124M from one seed:
+     (a) a compiled DAG of two pipeline stages (blocks 0-5; blocks 6-11,
+     the final norm and the head), 8 microbatches of 12 x 1024 tokens
+     submitted before any is read: each row's loss equal to this
+     process's whole forward within phase 9's tolerance, the argmax ids
+     equal, 6 forward launches a microbatch in each stage's process, an
+     error raised in stage 1 returned at its ref's get with later refs
+     answered, and teardown unlinking the rings with both actors alive;
+     microbatches/s and tokens/s against this process's forward, the
+     18.9 MB handoff's path and GB/s; (b) the same actors as two
+     data-parallel ranks of a declared collective group, 6 rows each,
+     their f32 gradients summed by ``allreduce`` and halved before the
+     trainer's AdamW step, 3 steps: the ranks' parameters equal to the
+     bit after every step, each step's loss equal to this process's
+     full-batch step, 12 / 12 / 12 launches a step on each rank; the
+     allreduce's seconds and GB/s;
  11. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
@@ -154,7 +171,11 @@ Phases, each fatal on failure:
      time), the loss falling, 8 / 4 / 4 launches a step, timed and
      profiled steps with peak memory beside its reckoning;
  13. online RLlib (``run_rllib``), the learners on the card and the env
-     runners' forward on the CPU: (a) each learner update on the card
+     runners actors of the port's runtime, each in a process of its own
+     with no CUDA context and its forward on the CPU (each reports its
+     pid, its process's CUDA state and its forward's devices), one PPO
+     runner actor's sample equal to the bit to the same sample in this
+     process: (a) each learner update on the card
      against the same update on the CPU, from the same parameters and a
      recorded batch (``ppo_update`` over PPOConfig's 4 epochs x 4
      minibatches with one permutation generator, ``_impala_update``,
@@ -2555,20 +2576,36 @@ def pid_exited(pid: int) -> bool:
         return True
 
 
-def card_runtime():
+def card_runtime(store_bytes: int = None):
     """Start the port's runtime on this host, the card counted as
-    ``"GPU": 1``; its worker processes import the checkout
+    ``"GPU": 1``, with a store of ``store_bytes`` (RUNTIME_STORE_BYTES
+    by default); its worker processes import the checkout
     (``PYTHONPATH``).  Returns the node; the caller shuts it down."""
     os.environ["PYTHONPATH"] = os.pathsep.join(
         [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p and p != HERE])
     import ray_tpu_torch as rt
 
-    node = rt.init(num_cpus=8, object_store_memory=RUNTIME_STORE_BYTES)
+    node = rt.init(num_cpus=8,
+                   object_store_memory=store_bytes or RUNTIME_STORE_BYTES)
     if rt.cluster_resources().get("GPU") != 1:
         rt.shutdown()
         raise SystemExit("the node does not count the card as 1 GPU")
     return node
+
+
+def keep_session_logs(node, label: str) -> str:
+    """Copy a shut-down session's worker and GCS logs under OUT_DIR (the
+    session lives in the machine's temporary directory); returns where."""
+    import shutil
+
+    dest = os.path.join(OUT_DIR, f"{label}_logs")
+    shutil.copytree(os.path.join(node.session_dir, "logs"), dest,
+                    dirs_exist_ok=True)
+    for name in os.listdir(node.session_dir):
+        if name.endswith((".err", ".out", ".log")):
+            shutil.copy(os.path.join(node.session_dir, name), dest)
+    return dest
 
 
 def wait_exited(pids, what: str, within: float = 60.0) -> float:
@@ -3399,7 +3436,7 @@ def run_torch_trainer(report):
               "warmup": TORCH_TRAINER_WARMUP, "timed": TORCH_TRAINER_TIMED}
     os.makedirs(OUT_DIR, exist_ok=True)
     storage = tempfile.mkdtemp(dir=OUT_DIR)
-    card_runtime()
+    node = card_runtime()
     t0 = time.monotonic()
     try:
         result = train.TorchTrainer(
@@ -3415,7 +3452,9 @@ def run_torch_trainer(report):
         rt.shutdown()
     fit_s = time.monotonic() - t0
     if result.error is not None:
-        raise SystemExit(f"the TorchTrainer loop failed: {result.error}")
+        kept = keep_session_logs(node, "torch_trainer")
+        raise SystemExit(f"the TorchTrainer loop failed: {result.error} "
+                         f"(the session's logs in {kept})")
     m = result.metrics
     if m["pid"] == os.getpid():
         raise SystemExit("the TorchTrainer loop ran in this process")
@@ -3969,6 +4008,431 @@ def run_tune(report):
           f"{launches}; the {len(card_pids)} processes that held the card "
           f"exited {res['exit_wait_s']:.2f} s after the shutdown; session "
           f"{node.session_dir}; phase {res['phase_s']:.1f} s", flush=True)
+    return launches
+
+
+# The actor plane (``run_actor_plane``): run_trainer's GPT-2 124M in two
+# GPU actors at num_gpus 0.5, (a) as two pipeline stages of a compiled DAG
+# and (b) as two data-parallel ranks averaging gradients through
+# util.collective.  Rows of ids from default_rng(ACTOR_PLANE_SEED).
+ACTOR_PLANE_SEED = 29
+ACTOR_PLANE_MICROBATCHES = 8
+ACTOR_PLANE_SEQUENTIAL = 3  # one microbatch at a time: the handoff alone
+ACTOR_PLANE_DP_STEPS = 3
+ACTOR_PLANE_STORE_BYTES = 4 << 30  # (b) moves 2 x 497 MB a round
+ACTOR_PLANE_TIMEOUT_S = 300
+
+
+def plane_rows(i: int, vocab: int):
+    """Microbatch or step ``i``'s token rows, (BATCH, SEQ + 1) int64."""
+    import numpy as np
+
+    rows = np.random.default_rng(ACTOR_PLANE_SEED).integers(
+        0, vocab, ((i + 1) * BATCH, SEQ + 1))
+    return rows[i * BATCH:]
+
+
+def plane_forward(params, cfg, x, lo, hi, tokens=None):
+    """GPT-2 blocks ``lo``..``hi`` - 1 through the port's ``gpt2._layer``
+    and the flash kernels, without gradients.  ``x`` is the token rows
+    (b, s + 1) when ``lo`` is 0 (the embeddings first), else the (b, s, d)
+    activations.  A stage that ends the model applies the final norm and
+    the tied head and returns each row's mean next-token loss (f32, (b,))
+    and the last position's argmax ids against ``tokens`` (the rows); an
+    earlier stage returns its activations."""
+    import torch
+
+    from ray_tpu_torch._device import torch_dtype
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.llama import layer_params
+    from ray_tpu_torch.models.losses import head_logits
+    from ray_tpu_torch.ops.attention import ATTENTION
+
+    with torch.no_grad():
+        if lo == 0:
+            tokens = x
+            s = tokens.shape[1] - 1
+            x = (params["wte"][tokens[:, :-1]]
+                 + params["wpe"][:s][None]).to(torch_dtype(cfg.dtype))
+        for i in range(lo, hi):
+            x = gpt2._layer(cfg, x, layer_params(params["layers"], i),
+                            ATTENTION["flash"])
+        if hi < cfg.n_layers:
+            return x
+        x = gpt2.layer_norm(x, params["lnf_g"], params["lnf_b"],
+                            cfg.norm_eps)
+        logits = head_logits(x, params["wte"].t())
+        nll = (torch.logsumexp(logits, dim=-1)
+               - logits.gather(-1, tokens[:, 1:, None])[..., 0])
+        return nll.mean(dim=1), logits[:, -1].argmax(dim=-1)
+
+
+def plane_state(device):
+    """run_trainer's GPT-2 124M configuration and parameters from
+    ACTOR_PLANE_SEED (every actor and this process alike)."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)
+    gen = torch.Generator(device=device).manual_seed(ACTOR_PLANE_SEED)
+    return cfg, gpt2.init(cfg, gen, device=device)
+
+
+class PlaneActor:
+    """One of ``run_actor_plane``'s GPU actors: the whole model from the
+    seed, able to run any range of its blocks as a pipeline stage (a) or
+    a data-parallel rank's step (b).  Every call records what it launched
+    in this process."""
+
+    def __init__(self, lo: int, hi: int):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg, self.params = plane_state("cuda")
+        self.lo, self.hi = lo, hi
+        self.calls = []
+
+    def forward(self, x, tokens=None, fail=False):
+        """A pipeline stage: the first takes the rows, a later one the
+        activations (a CPU view of the channel's slot, moved onto the card
+        here before anything else)."""
+        import torch
+
+        t_in = time.time()
+        if fail:
+            raise ValueError("stage asked to fail on this microbatch")
+        t0 = time.perf_counter()
+        x = x.to("cuda")
+        if tokens is not None:
+            tokens = tokens.to("cuda")
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        before = launch_counts()
+        out = plane_forward(self.params, self.cfg, x, self.lo, self.hi,
+                            tokens)
+        torch.cuda.synchronize()
+        self.calls.append({
+            "t_in": t_in, "t_out": time.time(), "h2d_s": h2d_s,
+            "launches": {k: n - before[k]
+                         for k, n in launch_counts().items()}})
+        if self.hi < self.cfg.n_layers:
+            return out  # a CUDA tensor: the channel copies it off the card
+        return tuple(t.cpu() for t in out)
+
+    def identity(self):
+        import torch
+
+        from ray_tpu_torch.dag import channel
+
+        return {"pid": os.getpid(),
+                "device": f"cuda:{torch.cuda.current_device()}",
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "writes": dict(channel.writes), "calls": self.calls}
+
+    def dp_init(self, lr: float):
+        from ray_tpu_torch.train import step as train_step
+
+        self.opt = train_step.default_optimizer(learning_rate=lr,
+                                                warmup_steps=1)
+        self.opt_state = self.opt.init(self.params)
+
+    def dp_step(self, rows, rank: int, world: int):
+        """Rank ``rank``'s rows of ``rows``: GPT-2's gradients through the
+        three kernels, flattened into one f32 tensor, summed over the
+        ranks by ``allreduce``, divided by the world size, then the
+        trainer's AdamW update.  Returns the rows' loss, the launches,
+        the allreduce's seconds and a bit checksum of every leaf."""
+        import torch
+
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.train.step import tree_leaves
+        from ray_tpu_torch.util import collective
+
+        n = rows.shape[0] // world
+        mine = torch.from_numpy(rows[rank * n:(rank + 1) * n]).to("cuda")
+        leaves = tree_leaves(self.params)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = launch_counts()
+        loss = gpt2.loss_fn(self.params, mine, self.cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        del grads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summed = collective.allreduce(flat, group_name="dp",
+                                      timeout=ACTOR_PLANE_TIMEOUT_S)
+        allreduce_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mean = summed.to("cuda") / world
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        out, at = [], 0
+        for t in leaves:
+            out.append(mean[at:at + t.numel()].view_as(t))
+            at += t.numel()
+        self.opt.update(self.params, out, self.opt_state)
+        torch.cuda.synchronize()
+        return {"loss": loss.item(), "allreduce_s": allreduce_s,
+                "h2d_s": h2d_s, "bytes": flat.numel() * flat.element_size(),
+                "dtype": str(summed.dtype), "device": summed.device.type,
+                "launches": {k: n - before[k]
+                             for k, n in launch_counts().items()},
+                "checksums": [byte_checksum(t.detach()) for t in leaves]}
+
+
+def run_actor_plane(report):
+    """The actor plane on the card (after ``run_tune``): two GPU actors at
+    ``num_gpus`` 0.5, each holding run_trainer's GPT-2 124M from one seed.
+    (a) A compiled DAG ``InputNode -> stage 0 (blocks 0-5) -> stage 1
+    (blocks 6-11, ln_f, head)``, one microbatch of 12 x 1024 tokens to
+    warm the stages, then 8 submitted before any is read (timed): every
+    microbatch's per-row losses equal
+    this process's 12-layer forward within STEP_LOSS_TOL and its argmax
+    ids equal, each stage launched the forward kernel 6 times a
+    microbatch in its own process, an error raised in stage 1 comes back
+    at its ref's get while later refs still return, and teardown unlinks
+    the rings and leaves both actors alive; microbatches/s and tokens/s
+    against this process's forward, and the 18.9 MB handoff's path and
+    GB/s.  (b) The same actors as two data-parallel ranks of a declared
+    collective group, 6 rows each, their f32 gradients (124M entries)
+    summed by ``allreduce`` and halved, then the trainer's AdamW step, 3
+    steps: both ranks' parameters equal to the bit after every step, each
+    step's loss (the ranks' mean) equal to this process's full-batch step
+    within STEP_LOSS_TOL, 12 / 12 / 12 launches a step on each rank; the
+    allreduce's seconds and GB/s.  Every process that held the card has
+    exited when the phase ends.  Returns the kernels' launches in the
+    actors' processes."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+    from ray_tpu_torch.util import collective
+
+    t_phase = time.monotonic()
+    res = {}
+    launches = {k: 0 for k in BF16_KERNELS}
+    cfg, params = plane_state("cuda")
+    split = cfg.n_layers // 2  # stage 0 runs blocks 0-5, stage 1 6-11
+    n_tok = BATCH * SEQ
+    micro = [torch.from_numpy(plane_rows(i, cfg.vocab_size))
+             for i in range(ACTOR_PLANE_MICROBATCHES
+                            + ACTOR_PLANE_SEQUENTIAL + 1)]
+
+    # this process's whole forward of every microbatch, and its rate
+    want = [plane_forward(params, cfg, r.to("cuda"), 0, cfg.n_layers)
+            for r in micro]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in micro[:ACTOR_PLANE_MICROBATCHES]:
+        plane_forward(params, cfg, r.to("cuda"), 0, cfg.n_layers)
+    torch.cuda.synchronize()
+    own_s = time.perf_counter() - t0
+    own_rate = ACTOR_PLANE_MICROBATCHES / own_s
+    del params
+    torch.cuda.empty_cache()
+
+    node = card_runtime(ACTOR_PLANE_STORE_BYTES)
+    card_pids = set()
+    try:
+        t0 = time.monotonic()
+        Plane = rt.remote(PlaneActor).options(num_gpus=0.5)
+        s0 = Plane.remote(0, split)
+        s1 = Plane.remote(split, cfg.n_layers)
+        ident = rt.get([s.identity.remote() for s in (s0, s1)],
+                       timeout=ACTOR_PLANE_TIMEOUT_S)
+        res["start_s"] = time.monotonic() - t0
+        card_pids |= {i["pid"] for i in ident}
+        print(f"actor plane: two GPT-2 124M actors at num_gpus 0.5 in "
+              f"{res['start_s']:.1f} s: pids {[i['pid'] for i in ident]} "
+              f"(this process {os.getpid()}) on "
+              f"{[i['device'] for i in ident]} under CUDA_VISIBLE_DEVICES "
+              f"{[i['visible'] for i in ident]}", flush=True)
+        if (os.getpid() in card_pids or len(card_pids) != 2
+                or any(i["device"] != "cuda:0" for i in ident)):
+            raise SystemExit(f"actor plane: actors {ident}")
+
+        # (a) two pipeline stages over a compiled DAG
+        with InputNode() as inp:
+            h = s0.forward.bind(inp["tokens"])
+            dag = s1.forward.bind(h, inp["tokens"], inp["fail"])
+        compiled = dag.experimental_compile()
+        rings = [f"/dev/shm/rtpu_chan_{ch.chan_id.hex()}"
+                 for ch in compiled._all_channels if ch.native]
+        # one microbatch first (untimed): each stage's first forward loads
+        # its kernels and libraries, as this process's first one did
+        got = [compiled.execute({"tokens": micro[0], "fail": False}).get(
+            timeout=ACTOR_PLANE_TIMEOUT_S)]
+        t0 = time.perf_counter()
+        refs = [compiled.execute({"tokens": r, "fail": False})
+                for r in micro[:ACTOR_PLANE_MICROBATCHES]]
+        got += [r.get(timeout=ACTOR_PLANE_TIMEOUT_S) for r in refs]
+        pipe_s = time.perf_counter() - t0
+        # an error in stage 1 on one microbatch, later ones still answered
+        bad = compiled.execute({"tokens": micro[-1], "fail": True})
+        after = [compiled.execute({"tokens": r, "fail": False})
+                 for r in micro[ACTOR_PLANE_MICROBATCHES:-1]]
+        try:
+            bad.get(timeout=ACTOR_PLANE_TIMEOUT_S)
+            error = None
+        except ValueError as e:
+            error = str(e)
+        got += [r.get(timeout=ACTOR_PLANE_TIMEOUT_S) for r in after]
+        # one microbatch at a time: the handoff with nothing queued
+        for r in micro[ACTOR_PLANE_MICROBATCHES:-1]:
+            got.append(compiled.execute({"tokens": r, "fail": False}).get(
+                timeout=ACTOR_PLANE_TIMEOUT_S))
+        compiled.teardown()
+        deadline = time.monotonic() + 10
+        while any(os.path.exists(n) for n in rings):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"actor plane (a): rings left after "
+                                 f"teardown: {rings}")
+            time.sleep(0.05)
+        ident = rt.get([s.identity.remote() for s in (s0, s1)],
+                       timeout=ACTOR_PLANE_TIMEOUT_S)  # both still alive
+
+        expect = (want[:1] + want[:ACTOR_PLANE_MICROBATCHES]
+                  + 2 * want[ACTOR_PLANE_MICROBATCHES:-1])
+        d_loss = max(float((g[0] - w[0].cpu()).abs().max())
+                     for g, w in zip(got, expect))
+        ids_equal = all(torch.equal(g[1], w[1].cpu())
+                        for g, w in zip(got, expect))
+        shapes = {(tuple(g[0].shape), str(g[0].dtype)) for g in got}
+        per_call = [[c["launches"]["flash_fwd"] for c in i["calls"]]
+                    for i in ident]
+        for i in ident:
+            for c in i["calls"]:
+                for k, n in c["launches"].items():
+                    launches[k] += n
+        # the sequential microbatches: stage 1's entry after stage 0's exit
+        seq = ACTOR_PLANE_SEQUENTIAL
+        hand_s = sorted(b["t_in"] - a["t_out"] for a, b in zip(
+            ident[0]["calls"][-seq:], ident[1]["calls"][-seq:]))
+        h2d_s = sorted(c["h2d_s"] for c in ident[1]["calls"][-seq:])
+        act_bytes = BATCH * SEQ * cfg.d_model * 2  # bf16
+        writes = ident[0]["writes"]
+        path = ("spilled through the store from the native ring"
+                if writes["spilled"] and not writes["ring"]
+                else "native ring" if writes["ring"] and not writes["spilled"]
+                else f"mixed {writes}")
+        pipe_rate = ACTOR_PLANE_MICROBATCHES / pipe_s
+        res["a"] = {
+            "microbatches": ACTOR_PLANE_MICROBATCHES, "pipelined_s": pipe_s,
+            "microbatches_per_s": pipe_rate,
+            "tokens_per_s": pipe_rate * n_tok,
+            "own_microbatches_per_s": own_rate,
+            "own_tokens_per_s": own_rate * n_tok,
+            "max_loss_diff": d_loss, "ids_equal": ids_equal,
+            "error": error, "stage_forward_launches": per_call,
+            "handoff_bytes": act_bytes, "handoff_s": hand_s,
+            "handoff_gbps": act_bytes / hand_s[len(hand_s) // 2] / 1e9,
+            "stage1_h2d_s": h2d_s, "stage0_writes": writes,
+            "path": path, "rings": len(rings)}
+        print(f"actor plane (a): {ACTOR_PLANE_MICROBATCHES} microbatches "
+              f"of {BATCH} x {SEQ} tokens pipelined over 2 stages in "
+              f"{pipe_s:.3f} s: {pipe_rate:.2f} microbatches/s, "
+              f"{pipe_rate * n_tok:.1f} tokens/s; this process's "
+              f"{cfg.n_layers}-layer forward {own_rate:.2f} microbatches/s, "
+              f"{own_rate * n_tok:.1f} tokens/s (ratio "
+              f"{pipe_rate / own_rate:.4f}); losses against this process's "
+              f"forward: largest difference {d_loss:.3e} (tol "
+              f"{STEP_LOSS_TOL:.0e}) over {len(got)} microbatches, argmax "
+              f"ids equal {ids_equal}; stage 1's error at its get: "
+              f"{error!r}; forward launches per microbatch (stage 0, stage "
+              f"1) {per_call}", flush=True)
+        print(f"actor plane (a): the {act_bytes / 1e6:.1f} MB bf16 handoff "
+              f"took the {path} path (stage 0's channel writes {writes}): "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in hand_s)} ms from stage "
+              f"0's return to stage 1's entry, one at a time = "
+              f"{res['a']['handoff_gbps']:.3f} GB/s (median), then its H2D "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in h2d_s)} ms; teardown "
+              f"unlinked {len(rings)} rings, both actors alive", flush=True)
+        want_calls = [[split] * (len(got) + 1),
+                      [cfg.n_layers - split] * len(got)]
+        if not (d_loss <= STEP_LOSS_TOL and ids_equal
+                and shapes == {((BATCH,), "torch.float32")}
+                and error is not None and "fail" in error
+                and per_call == want_calls):
+            raise SystemExit(f"actor plane (a) failed: {res['a']}, "
+                             f"launches want {want_calls}")
+
+        # (b) data parallelism through util.collective over the same actors
+        lr = 3e-4
+        collective.declare_collective_group([s0, s1], group_name="dp")
+        rt.get([s.dp_init.remote(lr) for s in (s0, s1)],
+               timeout=ACTOR_PLANE_TIMEOUT_S)
+        steps = []
+        for i in range(ACTOR_PLANE_DP_STEPS):
+            rows = plane_rows(i, cfg.vocab_size)
+            steps.append(rt.get([s.dp_step.remote(rows, r, 2)
+                                 for r, s in enumerate((s0, s1))],
+                                timeout=ACTOR_PLANE_TIMEOUT_S))
+    finally:
+        rt.shutdown()
+    res["exit_wait_s"] = wait_exited(card_pids, "actor plane")
+
+    # this process's trainer step on all 12 rows from the same parameters
+    opt = train_step.default_optimizer(learning_rate=lr, warmup_steps=1)
+    _, p0 = plane_state("cuda")
+    state = {"params": p0, "opt_state": opt.init(p0), "step": 0}
+    run = train_step.make_train_step(gpt2, cfg, opt)
+    own_losses = []
+    for i in range(ACTOR_PLANE_DP_STEPS):
+        state, m = run(state, torch.from_numpy(
+            plane_rows(i, cfg.vocab_size)).to("cuda"))
+        own_losses.append(m["loss"].item())
+    del state, run, p0
+    torch.cuda.empty_cache()
+    dp_losses = [(a["loss"] + b["loss"]) / 2 for a, b in steps]
+    diffs = [abs(a - b) for a, b in zip(dp_losses, own_losses)]
+    same = [a["checksums"] == b["checksums"] for a, b in steps]
+    want_step = {k: cfg.n_layers for k in BF16_KERNELS}
+    step_launches = [[r["launches"] for r in s] for s in steps]
+    for s in steps:
+        for r in s:
+            for k, n in r["launches"].items():
+                launches[k] += n
+    ar = [r["allreduce_s"] for s in steps for r in s]
+    nbytes = steps[0][0]["bytes"]
+    res["b"] = {
+        "steps": ACTOR_PLANE_DP_STEPS, "lr": lr, "rank_losses": [
+            [r["loss"] for r in s] for s in steps],
+        "losses": dp_losses, "own_losses": own_losses, "loss_diffs": diffs,
+        "params_equal": same, "launches": step_launches,
+        "allreduce_s": ar, "allreduce_bytes": nbytes,
+        "allreduce_gbps": [nbytes / t / 1e9 for t in ar],
+        "h2d_s": [r["h2d_s"] for s in steps for r in s],
+        "returned": sorted({(r["dtype"], r["device"]) for s in steps
+                            for r in s})}
+    print(f"actor plane (b): 2 ranks x {BATCH // 2} rows, "
+          f"{ACTOR_PLANE_DP_STEPS} "
+          f"steps: losses (the ranks' mean) "
+          f"{', '.join(f'{x:.6f}' for x in dp_losses)} against this "
+          f"process's full-batch step "
+          f"{', '.join(f'{x:.6f}' for x in own_losses)} (largest difference "
+          f"{max(diffs):.3e}, tol {STEP_LOSS_TOL:.0e}); parameters equal "
+          f"to the bit on both ranks after each step {same}; launches per "
+          f"step per rank {step_launches}; allreduce of {nbytes / 1e6:.1f} "
+          f"MB f32 (came back {res['b']['returned']}): "
+          f"{', '.join(f'{t:.3f}' for t in ar)} s = "
+          f"{', '.join(f'{g:.3f}' for g in res['b']['allreduce_gbps'])} "
+          f"GB/s", flush=True)
+    if not (all(same) and max(diffs) <= STEP_LOSS_TOL
+            and all(r == want_step for s in step_launches for r in s)
+            and res["b"]["returned"] == [("torch.float32", "cpu")]):
+        raise SystemExit(f"actor plane (b) failed: {res['b']}")
+    res["launches"] = launches
+    res["phase_s"] = time.monotonic() - t_phase
+    report["actor_plane"] = res
+    print(f"actor plane: launches in the actors' processes {launches}; the "
+          f"2 processes that held the card exited {res['exit_wait_s']:.2f} "
+          f"s after the shutdown; session {node.session_dir}; phase "
+          f"{res['phase_s']:.1f} s", flush=True)
     return launches
 
 
@@ -5197,11 +5661,126 @@ def rl_update_agreement(report, device):
                          f"CPU: {bad}")
 
 
+# The thread runners' PPO readings on this card (PERF.md §5), which the
+# runner actors' are printed beside: sample seconds an iteration and the
+# iteration's env steps a second (1024 steps over 0.21-0.31 s)
+THREAD_RUNNERS_SAMPLE_S = (0.138, 0.197)
+THREAD_RUNNERS_STEPS_PER_S = (1024 / 0.31, 1024 / 0.21)
+
+
+def probed_runner(base):
+    """A subclass of the runner class ``base`` that reports, through its
+    ``probe`` method, its process's pid, whether that process made a CUDA
+    context, and the devices of everything its forward saw: the
+    parameters it was handed, and in the single-agent and multi-agent
+    runners the observations and generator of every ``module.action_dist``
+    and ``module.forward`` call (the actor's process is its own, so the
+    wrappers see only this runner), in DreamerV3's its (h, z) state."""
+
+    class Probed(base):
+        def __init__(self, *args, **kwargs):
+            import torch
+
+            from ray_tpu_torch.rllib import module
+            from ray_tpu_torch.train.step import tree_leaves
+
+            super().__init__(*args, **kwargs)
+            seen = self._probe_devices = set()
+
+            def recording(fn):
+                def call(params, obs, *rest, **kw):
+                    seen.update({obs.device.type, *(
+                        t.device.type for t in tree_leaves(params))})
+                    seen.update(r.device.type for r in rest
+                                if isinstance(r, torch.Generator))
+                    return fn(params, obs, *rest, **kw)
+                return call
+
+            module.action_dist = recording(module.action_dist)
+            module.forward = recording(module.forward)
+
+        def _saw(self, params):
+            from ray_tpu_torch.train.step import tree_leaves
+
+            self._probe_devices.update(t.device.type
+                                       for t in tree_leaves(params))
+            for state in ("_h", "_z"):
+                if hasattr(self, state):
+                    self._probe_devices.add(getattr(self, state).device.type)
+
+        def sample(self, params, *args, **kwargs):
+            out = super().sample(params, *args, **kwargs)
+            self._saw(params)
+            return out
+
+        def sample_transitions(self, params, *args, **kwargs):
+            out = super().sample_transitions(params, *args, **kwargs)
+            self._saw(params)
+            return out
+
+        def probe(self):
+            import torch
+
+            return {"pid": os.getpid(),
+                    "cuda_initialized": torch.cuda.is_initialized(),
+                    "forward_devices": sorted(self._probe_devices)}
+
+    Probed.__name__ = Probed.__qualname__ = f"Probed{base.__name__}"
+    return Probed
+
+
+class probed_runners:
+    """Within the block, every online algorithm builds its env runners
+    from ``probed_runner`` subclasses (the algorithms look their runner
+    class up in their module when they are built)."""
+
+    def __enter__(self):
+        from ray_tpu_torch.rllib import (dqn, dreamerv3, impala, multi_agent,
+                                         ppo, sac)
+
+        self._saved = [(m, n, getattr(m, n)) for m, n in (
+            (ppo, "EnvRunner"), (impala, "EnvRunner"), (dqn, "EnvRunner"),
+            (sac, "EnvRunner"), (multi_agent, "MultiAgentEnvRunner"),
+            (dreamerv3, "DreamerEnvRunner"))]
+        for m, n, cls in self._saved:
+            setattr(m, n, probed_runner(cls))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, cls in self._saved:
+            setattr(m, n, cls)
+        return False
+
+
+def runner_probes(name, algo):
+    """Every runner actor's ``probe``; fails unless each runs in a process
+    of its own, made no CUDA context, and computed its forward on the CPU
+    only."""
+    import ray_tpu_torch as rt
+
+    runners = getattr(algo, "runners", None) or algo._runners
+    probes = rt.get([r.probe.remote() for r in runners], timeout=60)
+    pids = {p["pid"] for p in probes}
+    print(f"rllib {name}: {len(probes)} runner actors, pids {sorted(pids)} "
+          f"(this process {os.getpid()}), CUDA context in any "
+          f"{any(p['cuda_initialized'] for p in probes)}, their forward on "
+          f"{sorted({d for p in probes for d in p['forward_devices']})}",
+          flush=True)
+    if (os.getpid() in pids or len(pids) != len(probes)
+            or any(p["cuda_initialized"] for p in probes)
+            or any(p["forward_devices"] != ["cpu"] for p in probes)):
+        raise SystemExit(f"rllib {name}: runner actors {probes}: want a "
+                         f"process each, not this one, no CUDA context, "
+                         f"the forward on the CPU only")
+    return probes
+
+
 def rl_learn(name, algo, iters, stop_at=None):
     """Train ``algo`` for ``iters`` iterations (fewer once the best return
     reaches ``stop_at``); returns (best return, last result, a row of
-    timings).  An update is one call of the algorithm's update function:
-    ``learn_time_ms`` of an iteration over its updates."""
+    timings and the runners' probes).  An update is one call of the
+    algorithm's update function: ``learn_time_ms`` of an iteration over
+    its updates."""
     best, result, per_update = -math.inf, None, []
     t0, n_iters = time.perf_counter(), 0
     try:
@@ -5216,6 +5795,7 @@ def rl_learn(name, algo, iters, stop_at=None):
                 per_update.append(result["learn_time_ms"] / n_up)
             if stop_at is not None and best >= stop_at:
                 break
+        probes = runner_probes(name, algo)
     finally:
         algo.stop()
     wall = time.perf_counter() - t0
@@ -5226,7 +5806,7 @@ def rl_learn(name, algo, iters, stop_at=None):
            "env_steps_per_s": steps / wall,
            "update_ms_p50": (per_update[len(per_update) // 2]
                              if per_update else None),
-           "iterations_timed": len(per_update)}
+           "iterations_timed": len(per_update), "runners": probes}
     print(f"rllib {name}: best return {best:.2f} in {n_iters} iterations, "
           f"{steps} env steps at {row['env_steps_per_s']:.1f}/s, update ms "
           f"p50 {fmt_ms(row['update_ms_p50'])} over {len(per_update)} "
@@ -5236,7 +5816,92 @@ def rl_learn(name, algo, iters, stop_at=None):
 
 def run_rllib(report):
     """Phase 11: online RLlib with the learners on the card and the env
-    runners' forward on the CPU."""
+    runners actors of the port's runtime, their forward on the CPU."""
+    import ray_tpu_torch as rt
+
+    t_phase = time.monotonic()
+    report["rllib"] = {}
+    rl_update_agreement(report, "cuda")
+    node = card_runtime()
+    try:
+        with probed_runners():
+            rl_online(report)
+    finally:
+        rt.shutdown()
+    report["rllib"]["session"] = node.session_dir
+    report["rllib"]["phase_s"] = time.monotonic() - t_phase
+    print(f"rllib phase: {report['rllib']['phase_s']:.1f} s", flush=True)
+    failed = [k for k, (ok, _) in report["rllib"].pop("gates").items()
+              if not ok]
+    if failed:
+        raise SystemExit(f"RL learning gates failed: {failed}")
+
+
+def rl_build_all(builders):
+    """Call every builder at once, each on a thread of its own, so the
+    runner actors' processes start side by side.  Returns ({name: built
+    algorithm}, {name: its build's seconds}, the seconds until all were
+    built); a failed build raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {k: pool.submit(timed, b) for k, b in builders.items()}
+        built = {k: f.result() for k, f in futures.items()}
+    wall = time.perf_counter() - t0
+    each = {k: s for k, (_, s) in built.items()}
+    print(f"rllib: {len(built)} online algorithms built at once in "
+          f"{wall:.2f} s (each with its runner actors: "
+          + ", ".join(f"{k} {t:.2f} s" for k, t in each.items()) + ")",
+          flush=True)
+    return {k: a for k, (a, _) in built.items()}, each, wall
+
+
+def rl_parity_actor():
+    """A PPO runner actor for ``rl_sample_parity`` (the runner class PPO
+    builds its actors from, PPO's env, 4 envs, seed 3); started ahead so
+    that its process's start overlaps PPO's runners'."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+
+    return rt.remote(EnvRunner).remote(NumpyCartPole, 4, seed=3)
+
+
+def rl_sample_parity(actor, params):
+    """One ``sample`` call of ``actor`` (``rl_parity_actor``) against the
+    same call on an ``EnvRunner`` in this process, built with the same
+    env, seed and parameters: the fragments equal to the bit."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import module
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+
+    host = module.host_copy(params)
+    local = EnvRunner(NumpyCartPole, 4, seed=3)
+    try:
+        got = rt.get(actor.sample.remote(rt.put(host), 128), timeout=60)
+    finally:
+        rt.kill(actor)
+    want = local.sample(host, 128)
+    equal = set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want)
+    print(f"rllib ppo: one sample of 128 steps x 4 envs from a runner actor "
+          f"equals this process's EnvRunner's (same seed, env, parameters) "
+          f"to the bit: {equal}", flush=True)
+    if not equal:
+        raise SystemExit("a runner actor's sample differs from this "
+                         "process's EnvRunner's")
+    return equal
+
+
+def rl_online(report):
+    """Phase 11 (b)-(e) on the runtime ``run_rllib`` started."""
     import torch
 
     from ray_tpu_torch.rllib import module, ppo
@@ -5248,58 +5913,87 @@ def run_rllib(report):
     from ray_tpu_torch.rllib.sac import SACConfig
     from ray_tpu_torch.train.step import tree_leaves
 
-    t_phase = time.monotonic()
-    report["rllib"] = {}
-    rl_update_agreement(report, "cuda")
+    from ray_tpu_torch.rllib.examples import OneHotBanditEnv
 
-    # (b) PPO at tests/test_rllib.py's configuration; the runners' forward
-    # devices are read through a wrapper of action_dist
-    forward_devices = set()
-    action_dist = module.action_dist
+    # every online algorithm at its JAX test's configuration, built at
+    # once: the runner actors' processes (and the parity check's) start
+    # side by side; each is then trained alone
+    parity = rl_parity_actor()
+    algos, build_s, builds_wall = rl_build_all({
+        "ppo": lambda: ppo.PPOConfig().environment(NumpyCartPole)
+        .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                     rollout_fragment_length=128)
+        .training(lr=3e-3, num_epochs=6, minibatch_size=256,
+                  entropy_coeff=0.01, seed=3).build(),
+        "appo": lambda: APPOConfig(
+            num_env_runners=2, num_envs_per_runner=2,
+            rollout_fragment_length=64, lr=5e-3, minibatch_size=128, seed=0,
+            env=NumpyCartPole).build(),
+        "impala": lambda: IMPALAConfig(
+            num_env_runners=2, num_envs_per_runner=4,
+            rollout_fragment_length=64, lr=7e-4, entropy_coeff=0.02, seed=1,
+            env=NumpyCartPole).build(),
+        "dqn": lambda: DQNConfig(
+            num_env_runners=2, num_envs_per_runner=2,
+            rollout_fragment_length=64, learning_starts=256,
+            train_batch_size=64, num_updates_per_iter=8,
+            target_network_update_freq=300, epsilon_decay_steps=2500, seed=3,
+            env=NumpyCartPole).build(),
+        "sac": lambda: SACConfig(
+            num_env_runners=2, num_envs_per_runner=2,
+            rollout_fragment_length=64, learning_starts=256,
+            train_batch_size=128, num_updates_per_iter=24, seed=0,
+            env=NumpyCartPole).build(),
+        "multi_agent_ppo": lambda: MultiAgentPPOConfig(
+            env=TargetMatchEnv, policy_mapping_fn=lambda a: f"p_{a}",
+            num_env_runners=1, rollout_fragment_length=128, seed=0, lr=5e-3,
+            num_epochs=6).build(),
+        "dreamerv3": lambda: dreamer_config(OneHotBanditEnv).build()})
+    report["rllib"]["builds"] = {"wall_s": builds_wall, "each_s": build_s}
 
-    def recorded(params, obs, generator):
-        forward_devices.update({obs.device.type, generator.device.type,
-                                *(t.device.type for t in
-                                  tree_leaves(params))})
-        return action_dist(params, obs, generator)
-
-    module.action_dist = recorded
-    try:
-        algo = ppo.PPOConfig().environment(NumpyCartPole).env_runners(
-            num_env_runners=2, num_envs_per_env_runner=4,
-            rollout_fragment_length=128,
-        ).training(lr=3e-3, num_epochs=6, minibatch_size=256,
-                   entropy_coeff=0.01, seed=3).build()
-        learner_devices = {t.device.type for t in tree_leaves(algo.params)}
-        first, iters = None, []
-        t0 = time.perf_counter()
-        for _ in range(12):
-            result = algo.train()
-            if first is None and result["num_episodes"] > 0:
-                first = result["episode_return_mean"]
-            n = 2 * 4 * 128
-            it = {"return": result["episode_return_mean"],
-                  "sample_s": result["sample_time_s"],
-                  "update_ms": result["learn_time_ms"],
-                  "env_steps_per_s": n / result["time_this_iter_s"]}
-            iters.append(it)
-            print(f"rllib ppo iteration {result['training_iteration']}: "
-                  f"return {it['return']:.2f}, sample {it['sample_s']:.4f} "
-                  f"s, update {it['update_ms']:.2f} ms, "
-                  f"{it['env_steps_per_s']:.1f} env steps/s", flush=True)
-        ppo_wall = time.perf_counter() - t0
-    finally:
-        module.action_dist = action_dist
+    # (b) PPO at tests/test_rllib.py's configuration
+    algo = algos["ppo"]
+    learner_devices = {t.device.type for t in tree_leaves(algo.params)}
+    first, iters = None, []
+    t0 = time.perf_counter()
+    for _ in range(12):
+        result = algo.train()
+        if first is None and result["num_episodes"] > 0:
+            first = result["episode_return_mean"]
+        n = 2 * 4 * 128
+        it = {"return": result["episode_return_mean"],
+              "sample_s": result["sample_time_s"],
+              "update_ms": result["learn_time_ms"],
+              "env_steps_per_s": n / result["time_this_iter_s"]}
+        iters.append(it)
+        print(f"rllib ppo iteration {result['training_iteration']}: "
+              f"return {it['return']:.2f}, sample {it['sample_s']:.4f} "
+              f"s, update {it['update_ms']:.2f} ms, "
+              f"{it['env_steps_per_s']:.1f} env steps/s", flush=True)
+    ppo_wall = time.perf_counter() - t0
+    probes = runner_probes("ppo", algo)
     learner_devices |= {t.device.type for t in tree_leaves(algo.params)}
+    forward_devices = {d for p in probes for d in p["forward_devices"]}
     last = result["episode_return_mean"]
     ok_ppo = (result["training_iteration"] == 12
               and result["timesteps_total"] == 12 * 2 * 4 * 128
               and last > max(60.0, (first or 0) * 1.5))
+    sample_s = sorted(it["sample_s"] for it in iters)
+    steps_s = sorted(it["env_steps_per_s"] for it in iters)
     print(f"rllib ppo (tests/test_rllib.py's configuration, NumpyCartPole):"
           f" first {first}, last {last:.2f}, gate > "
           f"{max(60.0, (first or 0) * 1.5):.2f}; {result['timesteps_total']}"
           f" env steps in {ppo_wall:.2f} s; learner on {learner_devices}, "
           f"runners' forward on {forward_devices}", flush=True)
+    print(f"rllib ppo runner actors: sample {sample_s[0]:.4f}-"
+          f"{sample_s[-1]:.4f} s an iteration (median "
+          f"{sample_s[len(sample_s) // 2]:.4f}), {steps_s[0]:.1f}-"
+          f"{steps_s[-1]:.1f} env steps/s (median "
+          f"{steps_s[len(steps_s) // 2]:.1f}); the thread runners on this "
+          f"card: sample {THREAD_RUNNERS_SAMPLE_S[0]}-"
+          f"{THREAD_RUNNERS_SAMPLE_S[1]} s, {THREAD_RUNNERS_STEPS_PER_S[0]:.1f}"
+          f"-{THREAD_RUNNERS_STEPS_PER_S[1]:.1f} env steps/s", flush=True)
+    rl_sample_parity(parity, algo.params)
 
     # one ppo_update under the profiler, on copies of the learner's state
     # and a fresh batch, with no sampling in flight
@@ -5342,8 +6036,10 @@ def run_rllib(report):
     report["rllib"]["ppo"] = {
         "first_return": first, "last_return": last,
         "timesteps_total": result["timesteps_total"], "wall_s": ppo_wall,
-        "iterations": iters, "learner_devices": sorted(learner_devices),
+        "iterations": iters,
+        "learner_devices": sorted(learner_devices),
         "runner_forward_devices": sorted(forward_devices),
+        "runners": probes, "sample_parity": True,
         "profiled_update": {
             "update_ms": update_ms, "update_ms_readings": walls,
             "device_busy_ms": busy, "idle_share": idle,
@@ -5358,9 +6054,7 @@ def run_rllib(report):
 
     # (c) the other algorithms at their JAX tests' configurations and gates
     gates = {}
-    algo = APPOConfig(num_env_runners=2, num_envs_per_runner=2,
-                      rollout_fragment_length=64, lr=5e-3,
-                      minibatch_size=128, seed=0, env=NumpyCartPole).build()
+    algo = algos["appo"]
     inflight = []
     train = algo.train
 
@@ -5373,52 +6067,31 @@ def run_rllib(report):
     best, _, row = rl_learn("appo", algo, 30, stop_at=60.0)
     gates["appo"] = (best >= 60.0 and all(inflight), row)
 
-    algo = IMPALAConfig(num_env_runners=2, num_envs_per_runner=4,
-                        rollout_fragment_length=64, lr=7e-4,
-                        entropy_coeff=0.02, seed=1,
-                        env=NumpyCartPole).build()
-    best, result, row = rl_learn("impala", algo, 30)
+    best, result, row = rl_learn("impala", algos["impala"], 30)
     row["mean_rho"] = result.get("mean_rho")
     gates["impala"] = (best > 60 and result["loss"] is not None
                        and result["mean_rho"] > 0, row)
 
-    algo = DQNConfig(num_env_runners=2, num_envs_per_runner=2,
-                     rollout_fragment_length=64, learning_starts=256,
-                     train_batch_size=64, num_updates_per_iter=8,
-                     target_network_update_freq=300,
-                     epsilon_decay_steps=2500, seed=3,
-                     env=NumpyCartPole).build()
-    best, result, row = rl_learn("dqn", algo, 22)
+    best, result, row = rl_learn("dqn", algos["dqn"], 22)
     gates["dqn"] = (best > 60 and result["num_updates"] > 0
                     and result["loss"] is not None, row)
 
-    algo = SACConfig(num_env_runners=2, num_envs_per_runner=2,
-                     rollout_fragment_length=64, learning_starts=256,
-                     train_batch_size=128, num_updates_per_iter=24, seed=0,
-                     env=NumpyCartPole).build()
-    best, result, row = rl_learn("sac", algo, 45, stop_at=50.0)
+    best, result, row = rl_learn("sac", algos["sac"], 45, stop_at=50.0)
     row["alpha"] = result["alpha"]
     gates["sac"] = (best >= 50.0 and result["alpha"] > 0.0, row)
 
-    algo = MultiAgentPPOConfig(
-        env=TargetMatchEnv, policy_mapping_fn=lambda a: f"p_{a}",
-        num_env_runners=1, rollout_fragment_length=128, seed=0, lr=5e-3,
-        num_epochs=6).build()
-    best, result, row = rl_learn("multi_agent_ppo", algo, 15, stop_at=24.0)
+    best, result, row = rl_learn("multi_agent_ppo", algos["multi_agent_ppo"],
+                                 15, stop_at=24.0)
     row["per_agent_return_mean"] = result["per_agent_return_mean"]
     gates["multi_agent_ppo"] = (
         best >= 24.0 and set(result["policies"]) == {"p_a0", "p_a1"}
         and min(result["per_agent_return_mean"].values()) >= 9.0, row)
 
     rl_offline(report, gates)
-    rl_dreamer(report, gates)
+    rl_dreamer(report, gates, algos["dreamerv3"])
 
     report["rllib"]["algorithms"] = {k: row for k, (_, row) in gates.items()}
-    report["rllib"]["phase_s"] = time.monotonic() - t_phase
-    print(f"rllib phase: {report['rllib']['phase_s']:.1f} s", flush=True)
-    failed = [k for k, (ok, _) in gates.items() if not ok]
-    if failed:
-        raise SystemExit(f"RL learning gates failed: {failed}")
+    report["rllib"]["gates"] = gates
 
 
 def rl_offline(report, gates):
@@ -5530,31 +6203,15 @@ def rl_offline(report, gates):
                          "want the CPU (a host copy)")
 
 
-def rl_dreamer(report, gates):
+def rl_dreamer(report, gates, algo):
     """Phase 11 (e): DreamerV3 at tests/test_dreamerv3.py's learning
     configuration and gate on OneHotBanditEnv (best return >= 10 within
     80 iterations, the world-model loss falling), the learner on the card
     and the runner's filtering state and forward on the CPU; then one
     ``_update`` under the profiler on copies of the learner's state."""
-    import torch
-
-    from ray_tpu_torch.rllib import dreamerv3, module
-    from ray_tpu_torch.rllib.examples import OneHotBanditEnv
     from ray_tpu_torch.train.step import tree_leaves
 
-    runner_devices = set()
-    sample = dreamerv3.DreamerEnvRunner.sample
-
-    def recorded(self, params, num_steps):
-        out = sample(self, params, num_steps)
-        runner_devices.update({self._h.device.type, self._z.device.type,
-                               *(t.device.type
-                                 for t in tree_leaves(params))})
-        return out
-
     t0 = time.perf_counter()
-    algo = dreamer_config(OneHotBanditEnv).build()
-    dreamerv3.DreamerEnvRunner.sample = recorded
     try:
         learner_devices = {t.device.type for t in
                            tree_leaves([algo.params, algo.critic_target,
@@ -5574,9 +6231,10 @@ def rl_dreamer(report, gates):
             if best >= 10.0:
                 break
         learn_s = time.perf_counter() - t0
+        probes = runner_probes("dreamerv3", algo)
+        runner_devices = {d for p in probes for d in p["forward_devices"]}
         profiled = dreamer_profile(algo)
     finally:
-        dreamerv3.DreamerEnvRunner.sample = sample
         algo.stop()
     per_update.sort()
     row = {"iterations": iters, "updates": result["num_updates"],
@@ -5586,7 +6244,7 @@ def rl_dreamer(report, gates):
            "env_steps": result["env_steps_sampled"], "learn_s": learn_s,
            "phase_s": time.perf_counter() - t0,
            "learner_devices": sorted(learner_devices),
-           "runner_devices": sorted(runner_devices),
+           "runner_devices": sorted(runner_devices), "runners": probes,
            "profiled_update": profiled}
     print(f"rllib dreamerv3 (tests/test_dreamerv3.py's configuration, "
           f"OneHotBanditEnv): best return {best:.2f} in {iters} iterations "
@@ -5595,8 +6253,9 @@ def rl_dreamer(report, gates):
           f"{row['wm_loss_first']} -> {row['wm_loss_last']}, "
           f"{row['env_steps']} env steps; learning {learn_s:.2f} s, phase "
           f"{row['phase_s']:.2f} s; learner on {sorted(learner_devices)}, "
-          f"runner's state and forward on {sorted(runner_devices)}",
-          flush=True)
+          f"runner's state and forward on {sorted(runner_devices)}; host ms "
+          f"per update {row['update_ms_p50']:.2f} (p50 over iterations), "
+          f"{profiled['update_ms']:.2f} (one profiled update)", flush=True)
     gates["dreamerv3"] = (best >= 10.0 and bool(wm) and wm[-1] < wm[0], row)
     if learner_devices != {"cuda"} or runner_devices != {"cpu"}:
         raise SystemExit(f"DreamerV3 learner on {learner_devices}, runner "
@@ -5717,6 +6376,7 @@ def main() -> int:
     trainer_launches = run_trainer(report)
     torch_trainer_launches = run_torch_trainer(report)
     tune_launches = run_tune(report)
+    plane_launches = run_actor_plane(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
     mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
@@ -5739,6 +6399,7 @@ def main() -> int:
         by_path = {"trainer": trainer_launches[name],
                    "torch_trainer": torch_trainer_launches[name],
                    "tune": tune_launches[name],
+                   "actor_plane": plane_launches[name],
                    "moe_trainer": moe_launches[name],
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":

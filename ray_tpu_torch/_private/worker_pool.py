@@ -82,6 +82,12 @@ class WorkerPool:
     def spawn_worker(self) -> WorkerState:
         worker_id = os.urandom(8)
         env = dict(os.environ)
+        # One OpenMP thread a worker unless the caller chose otherwise, as
+        # Ray sets it: torch's default of one thread per core in every
+        # worker process oversubscribes the host as soon as two workers
+        # compute at once (two RLlib runner actors' small forwards took
+        # ~30x longer at the default on an 8-core host).
+        env.setdefault("OMP_NUM_THREADS", "1")
         env.update(self.worker_env)
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))

@@ -73,10 +73,9 @@ class ActorMethod:
         return ref
 
     def bind(self, *args, **kwargs):
-        """DAG nodes (the JAX package's ``dag/``) are not part of the port
-        yet."""
-        raise NotImplementedError(
-            "ray_tpu_torch has no dag/ yet: call .remote() instead of .bind()")
+        """Build a lazy DAG node (reference: python/ray/dag class_node)."""
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def options(self, num_returns: int = 1,
                 tensor_transport: Optional[str] = None, **_ignored):

@@ -5,9 +5,11 @@ Counterpart of ``ray_tpu/rllib``: the online algorithms (PPO, APPO,
 IMPALA, DQN, SAC, multi-agent PPO, DreamerV3) with the env-runner path
 they sample through, and the offline ones (BC, MARWIL, CQL) over episode
 lists or any ``iter_batches`` source.  The learners' tensors live on CUDA
-unless the caller passes ``device="cpu"``; the env runners run on threads
-of their own (``_actors.py``, the stand-in for the runtime's actors) and
-compute their forward on the CPU from a CPU copy of the parameters.
+unless the caller passes ``device="cpu"``; the env runners are actors of
+the port's runtime (``ray_tpu_torch.remote``), so the online algorithms
+need ``ray_tpu_torch.init()`` as the JAX package's do.  A runner takes no
+GPU: it receives a CPU copy of the parameters through the store and
+computes its forward on the CPU.
 Exports what the JAX package's ``rllib`` exports.
 """
 

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 
@@ -44,7 +44,7 @@ class APPO(PPO):
 
     def _launch_sampling(self):
         behavior = module_mod.host_copy(self.params)
-        params_ref = _actors.put(behavior)
+        params_ref = ray_tpu_torch.put(behavior)
         self._inflight = [
             r.sample.remote(params_ref,
                             self.config.rollout_fragment_length)
@@ -54,7 +54,7 @@ class APPO(PPO):
     def _collect(self):
         if self._inflight is None:
             self._launch_sampling()
-        frags = _actors.get(self._inflight, timeout=600)
+        frags = ray_tpu_torch.get(self._inflight, timeout=600)
         behavior_params = self._inflight_params
         # the next batch starts sampling now, with the weights the learner
         # is about to update away from (the APPO staleness); the batch

@@ -17,8 +17,8 @@ from typing import Any, Callable, Dict, Union
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.replay_buffers import (
@@ -99,13 +99,13 @@ class DQN:
     def __init__(self, config: DQNConfig, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = config
-        runner_cls = _actors.remote(EnvRunner)
+        runner_cls = ray_tpu_torch.remote(EnvRunner)
         self._runners = [
             runner_cls.remote(config.env, config.num_envs_per_runner,
                               seed=config.seed + 1000 * i)
             for i in range(config.num_env_runners)
         ]
-        spec = _actors.get(self._runners[0].env_spec.remote(), timeout=60)
+        spec = ray_tpu_torch.get(self._runners[0].env_spec.remote(), timeout=60)
         mcfg = module_mod.MLPConfig(
             obs_dim=spec["obs_dim"], n_actions=spec["n_actions"],
             hidden=config.hidden)
@@ -134,8 +134,8 @@ class DQN:
         c = self.config
         t0 = time.perf_counter()
         eps = self._epsilon()
-        params_ref = _actors.put(module_mod.host_copy(self.params))
-        batches = _actors.get([
+        params_ref = ray_tpu_torch.put(module_mod.host_copy(self.params))
+        batches = ray_tpu_torch.get([
             r.sample_transitions.remote(params_ref,
                                         c.rollout_fragment_length, eps)
             for r in self._runners
@@ -176,7 +176,7 @@ class DQN:
             self._last_target_sync = self._env_steps
         learn_ms = (time.perf_counter() - t_sampled) * 1e3
 
-        metrics = _actors.get(
+        metrics = ray_tpu_torch.get(
             [r.get_metrics.remote() for r in self._runners], timeout=60)
         returns = [x for m in metrics for x in m["episode_returns"]]
         self._iter += 1
@@ -215,4 +215,7 @@ class DQN:
 
     def stop(self) -> None:
         for r in self._runners:
-            _actors.kill(r)
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

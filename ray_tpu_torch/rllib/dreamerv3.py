@@ -35,8 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.train.step import ClippedAdam, tree_leaves
 
@@ -539,10 +539,10 @@ class DreamerV3:
     def __init__(self, config: DreamerV3Config, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = config
-        runner_cls = _actors.remote(DreamerEnvRunner)
+        runner_cls = ray_tpu_torch.remote(DreamerEnvRunner)
         self._runners = [runner_cls.remote(config, seed=config.seed + 997 * i)
                          for i in range(config.num_env_runners)]
-        spec = _actors.get(self._runners[0].env_spec.remote(), timeout=60)
+        spec = ray_tpu_torch.get(self._runners[0].env_spec.remote(), timeout=60)
         self._spec = spec
         self.params = init_params(
             config, spec["obs_dim"], spec["n_actions"],
@@ -565,8 +565,8 @@ class DreamerV3:
     def train(self) -> Dict[str, Any]:
         c = self.config
         t0 = time.perf_counter()
-        params_ref = _actors.put(module_mod.host_copy(self.params))
-        frags = _actors.get([
+        params_ref = ray_tpu_torch.put(module_mod.host_copy(self.params))
+        frags = ray_tpu_torch.get([
             r.sample.remote(params_ref, c.rollout_fragment_length)
             for r in self._runners], timeout=600)
         new_steps = 0
@@ -598,7 +598,7 @@ class DreamerV3:
                           for m in metrics], axis=0) if metrics else [])
         learn_ms = (time.perf_counter() - t_sampled) * 1e3
 
-        runner_metrics = _actors.get(
+        runner_metrics = ray_tpu_torch.get(
             [r.get_metrics.remote() for r in self._runners], timeout=60)
         returns = [x for m in runner_metrics for x in m["episode_returns"]]
         self._iter += 1
@@ -634,4 +634,7 @@ class DreamerV3:
 
     def stop(self) -> None:
         for r in self._runners:
-            _actors.kill(r)
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

@@ -5,8 +5,8 @@ importance-weighted actor-learner architecture): env-runner actors sample
 with a stale behavior policy while the learner updates continuously; the
 lag is corrected with V-trace (Espeholt et al. 2018).  JAX runs V-trace's
 recursion as a reversed ``lax.scan``; here it is a reversed loop over T.
-Sampling overlaps learning through ``_actors.wait`` on the rollout
-futures in flight.
+Sampling overlaps learning through ``ray_tpu_torch.wait`` on the
+runner actors' rollouts in flight.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import Any, Callable, Dict, Union
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.train.step import ClippedAdam
@@ -116,13 +116,13 @@ class IMPALA:
     def __init__(self, config: IMPALAConfig, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = config
-        runner_cls = _actors.remote(EnvRunner)
+        runner_cls = ray_tpu_torch.remote(EnvRunner)
         self._runners = [
             runner_cls.remote(config.env, config.num_envs_per_runner,
                               seed=config.seed + 1000 * i)
             for i in range(config.num_env_runners)
         ]
-        spec = _actors.get(self._runners[0].env_spec.remote(), timeout=60)
+        spec = ray_tpu_torch.get(self._runners[0].env_spec.remote(), timeout=60)
         mcfg = module_mod.MLPConfig(
             obs_dim=spec["obs_dim"], n_actions=spec["n_actions"],
             hidden=config.hidden)
@@ -131,7 +131,7 @@ class IMPALA:
         self.opt_state = ClippedAdam().init(self.params)
         self._iter = 0
         self._env_steps = 0
-        # rollout futures in flight, each sampled with the params of its
+        # rollout refs in flight, each sampled with the params of its
         # submission (V-trace corrects the staleness)
         self._inflight: Dict[Any, Any] = {}
         for r in self._runners:
@@ -139,22 +139,22 @@ class IMPALA:
                 self._submit(r)
 
     def _submit(self, runner):
-        future = runner.sample.remote(module_mod.host_copy(self.params),
-                                      self.config.rollout_fragment_length)
-        self._inflight[future] = runner
+        ref = runner.sample.remote(module_mod.host_copy(self.params),
+                                   self.config.rollout_fragment_length)
+        self._inflight[ref.binary()] = (ref, runner)
 
     def train(self) -> Dict[str, Any]:
         c = self.config
         t0 = time.perf_counter()
         losses, aux_last, learn_ms = [], None, 0.0
         for _ in range(max(1, c.num_env_runners)):
-            ready, _ = _actors.wait(list(self._inflight), num_returns=1,
-                                    timeout=120)
+            refs = [ref for ref, _ in self._inflight.values()]
+            ready, _ = ray_tpu_torch.wait(refs, num_returns=1, timeout=120)
             if not ready:
                 break
-            future = ready[0]
-            runner = self._inflight.pop(future)
-            rollout = _actors.get(future)
+            ref = ready[0]
+            _, runner = self._inflight.pop(ref.binary())
+            rollout = ray_tpu_torch.get(ref, timeout=60)
             self._submit(runner)  # keep the pipeline full
             t_learn = time.perf_counter()
             cols = {
@@ -179,7 +179,7 @@ class IMPALA:
             self._env_steps += (c.rollout_fragment_length
                                 * c.num_envs_per_runner)
 
-        metrics = _actors.get(
+        metrics = ray_tpu_torch.get(
             [r.get_metrics.remote() for r in self._runners], timeout=60)
         returns = [x for m in metrics for x in m["episode_returns"]]
         self._iter += 1
@@ -216,4 +216,7 @@ class IMPALA:
 
     def stop(self) -> None:
         for r in self._runners:
-            _actors.kill(r)
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

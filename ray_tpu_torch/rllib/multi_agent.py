@@ -29,8 +29,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.rllib.ppo import frags_to_batch, ppo_update
 from ray_tpu_torch.train.step import ClippedAdam
@@ -177,12 +177,12 @@ class MultiAgentPPO:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = config
-        runner_cls = _actors.remote(MultiAgentEnvRunner)
+        runner_cls = ray_tpu_torch.remote(MultiAgentEnvRunner)
         self.runners = [
             runner_cls.remote(config.env, config.policy_mapping_fn,
                               seed=config.seed + 1000 * i)
             for i in range(config.num_env_runners)]
-        self.spec = _actors.get(self.runners[0].env_spec.remote(),
+        self.spec = ray_tpu_torch.get(self.runners[0].env_spec.remote(),
                                 timeout=60)
         self.params: Dict[str, Any] = {}
         self.opt_state: Dict[str, Any] = {}
@@ -202,8 +202,8 @@ class MultiAgentPPO:
         t0 = time.perf_counter()
         host_params = {pid: module_mod.host_copy(p)
                        for pid, p in self.params.items()}
-        params_ref = _actors.put(host_params)
-        frags = _actors.get(
+        params_ref = ray_tpu_torch.put(host_params)
+        frags = ray_tpu_torch.get(
             [r.sample.remote(params_ref, cfg.rollout_fragment_length)
              for r in self.runners], timeout=600)
         t_sampled = time.perf_counter()
@@ -226,7 +226,7 @@ class MultiAgentPPO:
             stats_by_policy[pid] = {k: float(v) for k, v in stats.items()}
             learn_ms += (time.perf_counter() - t_learn) * 1e3
         self.iteration += 1
-        metrics = _actors.get(
+        metrics = ray_tpu_torch.get(
             [r.get_metrics.remote() for r in self.runners], timeout=60)
         episodes = [ep for m in metrics for ep in m["episode_returns"]]
         mean_return = (float(np.mean([sum(ep.values())
@@ -268,4 +268,7 @@ class MultiAgentPPO:
 
     def stop(self):
         for r in self.runners:
-            _actors.kill(r)
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

@@ -19,8 +19,8 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.train.step import ClippedAdam
@@ -176,7 +176,7 @@ class PPO:
     def __init__(self, config: PPOConfig, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = config
-        runner_cls = _actors.remote(EnvRunner)
+        runner_cls = ray_tpu_torch.remote(EnvRunner)
         self.runners = [
             runner_cls.remote(
                 config.env, config.num_envs_per_runner,
@@ -184,7 +184,7 @@ class PPO:
                 env_to_module=(config.env_to_module()
                                if config.env_to_module else None))
             for i in range(config.num_env_runners)]
-        spec = _actors.get(self.runners[0].env_spec.remote(), timeout=60)
+        spec = ray_tpu_torch.get(self.runners[0].env_spec.remote(), timeout=60)
         self.module_cfg = module_mod.MLPConfig(
             obs_dim=spec["obs_dim"], n_actions=spec["n_actions"],
             hidden=config.hidden)
@@ -202,8 +202,8 @@ class PPO:
         with pipelined one-iteration-stale sampling."""
         cfg = self.config
         behavior = module_mod.host_copy(self.params)
-        params_ref = _actors.put(behavior)
-        frags = _actors.get(
+        params_ref = ray_tpu_torch.put(behavior)
+        frags = ray_tpu_torch.get(
             [r.sample.remote(params_ref, cfg.rollout_fragment_length)
              for r in self.runners], timeout=600)
         return frags, behavior
@@ -228,7 +228,7 @@ class PPO:
         stats = {k: float(v) for k, v in stats.items()}  # waits for it
         learn_ms = (time.perf_counter() - t_learn) * 1e3
         self.iteration += 1
-        metrics = _actors.get([r.get_metrics.remote() for r in self.runners],
+        metrics = ray_tpu_torch.get([r.get_metrics.remote() for r in self.runners],
                               timeout=60)
         returns = [x for m in metrics for x in m["episode_returns"]]
         lens = [x for m in metrics for x in m["episode_lens"]]
@@ -293,4 +293,7 @@ class PPO:
 
     def stop(self):
         for r in self.runners:
-            _actors.kill(r)
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

@@ -20,8 +20,8 @@ from typing import Any, Callable, Dict, Union
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import module as module_mod
 from ray_tpu_torch.rllib.dqn import target_copy
 from ray_tpu_torch.rllib.env_runner import EnvRunner
@@ -138,13 +138,13 @@ class SAC:
     def __init__(self, config: SACConfig, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = config
-        runner_cls = _actors.remote(EnvRunner)
+        runner_cls = ray_tpu_torch.remote(EnvRunner)
         self._runners = [
             runner_cls.remote(config.env, config.num_envs_per_runner,
                               seed=config.seed + 1000 * i)
             for i in range(config.num_env_runners)
         ]
-        spec = _actors.get(self._runners[0].env_spec.remote(), timeout=60)
+        spec = ray_tpu_torch.get(self._runners[0].env_spec.remote(), timeout=60)
         mcfg = module_mod.MLPConfig(
             obs_dim=spec["obs_dim"], n_actions=spec["n_actions"],
             hidden=config.hidden)
@@ -167,8 +167,8 @@ class SAC:
         c = self.config
         t0 = time.perf_counter()
         # exploration samples from the softmax policy
-        params_ref = _actors.put(module_mod.host_copy(self.pi_params))
-        batches = _actors.get([
+        params_ref = ray_tpu_torch.put(module_mod.host_copy(self.pi_params))
+        batches = ray_tpu_torch.get([
             r.sample_transitions.remote(params_ref,
                                         c.rollout_fragment_length,
                                         0.0, "softmax")
@@ -203,7 +203,7 @@ class SAC:
                 n_updates += 1
         learn_ms = (time.perf_counter() - t_sampled) * 1e3
 
-        metrics = _actors.get(
+        metrics = ray_tpu_torch.get(
             [r.get_metrics.remote() for r in self._runners], timeout=60)
         returns = [x for m in metrics for x in m["episode_returns"]]
         self._iter += 1
@@ -243,4 +243,7 @@ class SAC:
 
     def stop(self) -> None:
         for r in self._runners:
-            _actors.kill(r)
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

@@ -207,7 +207,16 @@ class WorkerGroup:
         for rank, w in enumerate(self._workers):
             shards = None
             if dataset_shards_per_rank is not None:
-                shards = cloudpickle.dumps(dataset_shards_per_rank[rank])
+                # through the store, not inline in the call: the native
+                # transport drops a connection whose peer reads nothing for
+                # 10 s (core_worker.cc send_all), and a new worker importing
+                # torch and making its CUDA context reads nothing for about
+                # that long, so a call frame larger than the socket's buffer
+                # sent meanwhile killed the actor (1.3 MB of token rows did,
+                # 5 runs of 6 on the H100's host); the worker gets the bytes
+                # from the store once it runs ``setup``
+                shards = ray_tpu_torch.put(cloudpickle.dumps(
+                    dataset_shards_per_rank[rank]))
             setups.append(w.setup.remote(
                 rank, rank, n, experiment_name, experiment_dir,
                 restore_checkpoint_path, address, self._backend,

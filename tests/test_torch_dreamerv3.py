@@ -54,6 +54,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _port_runtime(_one_torch_thread):
+    """The port's runtime for the algorithms' runner actors, as the JAX
+    tests run theirs in the session cluster; its pre-started workers
+    take one intra-op thread each."""
+    import ray_tpu_torch as rt
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        rt.init(min_workers=4, max_workers=8, object_store_memory=1 << 27,
+                resources={"CPU": 8.0})
+    yield rt
+    rt.shutdown()
+
+
 def _config(cls, **kw):
     base = dict(env=texamples.OneHotBanditEnv, deter=16, hidden=16,
                 embed=8, stoch_vars=3, stoch_classes=5, horizon=4,

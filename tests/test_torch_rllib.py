@@ -29,7 +29,6 @@ from ray_tpu.rllib import ppo as jppo
 from ray_tpu.rllib import replay_buffers as jreplay
 from ray_tpu.rllib import sac as jsac
 from ray_tpu_torch import convert
-from ray_tpu_torch.rllib import _actors
 from ray_tpu_torch.rllib import connectors as tconnectors
 from ray_tpu_torch.rllib import dqn as tdqn
 from ray_tpu_torch.rllib import env_runner as tenv_runner
@@ -52,6 +51,21 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_runtime(_one_torch_thread):
+    """The port's runtime for the algorithms' runner actors, as the JAX
+    tests run theirs in the session cluster; its pre-started workers
+    take one intra-op thread each."""
+    import ray_tpu_torch as rt
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        rt.init(min_workers=4, max_workers=8, object_store_memory=1 << 27,
+                resources={"CPU": 8.0})
+    yield rt
+    rt.shutdown()
 
 
 # Tolerances are of the largest magnitude compared (``_close``), at least
@@ -570,8 +584,8 @@ def test_behavior_snapshot_is_not_aliased():
 
 
 def test_ppo_learns_cartpole():
-    """tests/test_rllib.py's configuration and gate, through ``_actors``
-    runner threads, on one thread in well under 30 s."""
+    """tests/test_rllib.py's configuration and gate, through runner
+    actors of the port's runtime, on one thread in well under 30 s."""
     import time
 
     t0 = time.perf_counter()
@@ -629,41 +643,97 @@ def test_algorithms_raise_without_a_gpu():
         tmodule.init_mlp(tmodule.MLPConfig(4, 2))
 
 
-def test_actors_keep_call_order_and_wait_for_the_first():
-    """One thread an actor: its calls run in the order made; ``wait``
-    returns the first future done; an actor's exception reaches ``get``."""
-    import threading
+def test_runner_actor_fragments_equal_an_in_process_runner():
+    """A runner actor of the port's runtime, built with the seed, env and
+    parameters of an ``EnvRunner`` in this process, samples the same
+    fragments to the bit, call after call, in another process."""
+    import os
 
-    class Slow:
-        def __init__(self, gate):
-            self.gate, self.log = gate, []
+    import ray_tpu_torch as rt
 
-        def step(self, i, block=False):
-            if block:
-                self.gate.wait(5)
-            self.log.append(i)
-            return i
-
-        def fail(self):
-            raise ValueError("boom")
-
-    gate = threading.Event()
-    a, b = (_actors.remote(Slow).remote(gate) for _ in range(2))
+    params = tmodule.init_mlp(tmodule.MLPConfig(4, 4),
+                              torch.Generator().manual_seed(7), "cpu")
+    host = tmodule.host_copy(params)
+    local = tenv_runner.EnvRunner(texamples.OneHotBanditEnv, 3, seed=11)
+    actor = rt.remote(tenv_runner.EnvRunner).remote(
+        texamples.OneHotBanditEnv, 3, seed=11)
     try:
-        slow = a.step.remote(0, block=True)
-        later = [a.step.remote(i) for i in (1, 2)]
-        fast = b.step.remote(9)
-        ready, rest = _actors.wait([slow, fast], num_returns=1, timeout=5)
-        assert ready == [fast] and rest == [slow]
-        gate.set()
-        assert _actors.get(later, timeout=5) == [1, 2]
-        assert _actors.get(a.step.remote(_actors.put(7)), timeout=5) == 7
-        with pytest.raises(ValueError, match="boom"):
-            _actors.get(b.fail.remote(), timeout=5)
+        for n in (20, 7):
+            got = rt.get(actor.sample.remote(rt.put(host), n), timeout=60)
+            want = local.sample(host, n)
+            assert set(got) == set(want)
+            for k in want:
+                assert got[k].dtype == want[k].dtype, k
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert rt.get(actor.get_metrics.remote(),
+                      timeout=60) == local.get_metrics()
+        pid = rt.get(actor.__rtpu_apply__.remote(
+            lambda _self: os.getpid()), timeout=60)
+        assert pid != os.getpid()
     finally:
-        gate.set()
-        _actors.kill(a)
-        _actors.kill(b)
+        rt.kill(actor)
+
+
+@pytest.mark.parametrize("parent", [None, "3"])
+def test_workers_default_to_one_openmp_thread(parent, monkeypatch, tmp_path):
+    """A worker process gets ``OMP_NUM_THREADS=1`` unless its parent set
+    one, as Ray's workers do: at torch's default (a thread per core in
+    every process) two runner actors sampling at once oversubscribe the
+    host.  The JAX package's pool passes the parent's environment on
+    unchanged."""
+    import subprocess
+
+    from ray_tpu._private import worker_pool as jpool
+    from ray_tpu_torch._private import worker_pool as tpool
+
+    if parent is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", parent)
+    envs = []
+
+    class Spawned:
+        def __init__(self, args, env, **kwargs):
+            envs.append(env)
+
+    monkeypatch.setattr(subprocess, "Popen", Spawned)
+    for mod in (jpool, tpool):
+        pool = mod.WorkerPool(str(tmp_path / "sched"), str(tmp_path / "st"),
+                              "shm", 1 << 20, b"\0" * 8, 0, 1)
+        pool.spawn_worker()
+    assert [e.get("OMP_NUM_THREADS") for e in envs] == [parent, parent or "1"]
+
+
+def test_runner_actors_keep_call_order_and_wait_for_the_first():
+    """One runner actor's calls run in the order made (its episode counts
+    grow with each sample); ``ray_tpu_torch.wait`` returns the first ref
+    done among two runner actors'; a runner's exception reaches ``get``."""
+    import ray_tpu_torch as rt
+
+    host = tmodule.host_copy(tmodule.init_mlp(
+        tmodule.MLPConfig(4, 4), torch.Generator().manual_seed(8), "cpu"))
+    runner = rt.remote(tenv_runner.EnvRunner)
+    a, b = (runner.remote(texamples.OneHotBanditEnv, 2, seed=s)
+            for s in (1, 2))
+    try:
+        rt.get([a.env_spec.remote(), b.env_spec.remote()], timeout=60)
+        ref = rt.put(host)
+        slow = a.sample.remote(ref, 4000)
+        counts = [a.get_metrics.remote()]
+        counts += [a.sample.remote(ref, 22), a.get_metrics.remote()]
+        fast = b.env_spec.remote()
+        ready, rest = rt.wait([slow, fast], num_returns=1, timeout=60)
+        assert ready == [fast] and rest == [slow]
+        first, _, second = rt.get(counts, timeout=60)
+        # OneHotBanditEnv's episodes are 16 steps: 4000 steps of 2 envs
+        # end 500 episodes, 22 more steps 2 more
+        assert len(first["episode_returns"]) == 500
+        assert len(second["episode_returns"]) == 2
+        with pytest.raises(ValueError):
+            rt.get(b.sample.remote(ref, 0), timeout=60)
+    finally:
+        rt.kill(a)
+        rt.kill(b)
 
 
 def test_appo_restore_keeps_the_algorithm(tmp_path, monkeypatch):

@@ -1,8 +1,8 @@
 """The port's APPO, IMPALA, DQN, SAC and multi-agent PPO learn on the CPU at
 their JAX tests' configurations and gates (``tests/test_rllib.py``,
 ``test_impala.py``, ``test_dqn.py``, ``test_sac_marwil.py``,
-``test_multi_agent.py``), through the ``_actors`` runner threads, and
-checkpoint and restore.  ``chip_smoke.py``'s RL phase holds them to the
+``test_multi_agent.py``), through runner actors of the port's runtime,
+and checkpoint and restore.  ``chip_smoke.py``'s RL phase holds them to the
 same gates with the learners on the card.
 """
 
@@ -35,8 +35,32 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _agent(a):
-    return f"p_{a}"
+@pytest.fixture(scope="module", autouse=True)
+def _port_runtime(_one_torch_thread):
+    """The port's runtime for the algorithms' runner actors, as the JAX
+    tests run theirs in the session cluster; its pre-started workers
+    take one intra-op thread each."""
+    import ray_tpu_torch as rt
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        rt.init(min_workers=4, max_workers=8, object_store_memory=1 << 27,
+                resources={"CPU": 8.0})
+    yield rt
+    rt.shutdown()
+
+
+def _mapping():
+    """The policy mapping, made in a closure: the runner actors get it by
+    value (the runtime pickles a module's function by reference where it
+    can, and the actors cannot import this module)."""
+    def agent(a):
+        return f"p_{a}"
+
+    return agent
+
+
+_agent = _mapping()
 
 
 # name: (config, iterations, stop once the best return reaches this)

@@ -916,3 +916,43 @@ def test_device_telemetry_gauges_from_memory_stats(monkeypatch):
     assert in_use["values"][("0", pid)] == 512.0
     assert builds["values"] == {(pid,): 2.0}
     assert secs["values"] == {(pid,): 3.5}
+
+
+# ---------------------------------------------------------------------------
+# a large argument to an actor still in its constructor
+
+
+def test_a_large_inline_argument_to_a_busy_new_actor_kills_it(ray_cluster,
+                                                              port):
+    """A fault of the reference, ported as it is: the native transport's
+    sender gives up on a peer that reads nothing for 10 s
+    (``native/core_worker.cc`` ``send_all``) and drops the connection, so
+    a call whose frame is larger than the socket's buffer, sent to an
+    actor whose constructor runs longer than that (a new worker importing
+    torch and making its CUDA context on a slow host), kills the actor.
+    The same bytes through a put ref arrive: the train package's worker
+    group sends its dataset shards so."""
+    def slow_cls(pkg):
+        @pkg.remote
+        class Slow:
+            def __init__(self):
+                time.sleep(10.5)
+
+            def size(self, blob):
+                return len(blob)
+
+        return Slow
+
+    blob = b"x" * (4 << 20)
+    calls = {}
+    for name, pkg in _packages().items():  # all four constructors at once
+        slow = slow_cls(pkg)
+        inline, stored = slow.remote(), slow.remote()
+        calls[name] = (pkg, (inline, stored), inline.size.remote(blob),
+                       stored.size.remote(pkg.put(blob)))
+    for name, (pkg, actors, by_frame, by_ref) in calls.items():
+        with pytest.raises(pkg.exceptions.ActorDiedError):
+            pkg.get(by_frame, timeout=TIMEOUT)
+        assert pkg.get(by_ref, timeout=TIMEOUT) == len(blob), name
+        for a in actors:
+            pkg.kill(a)
