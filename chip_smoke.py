@@ -102,7 +102,7 @@ Phases, each fatal on failure:
  10. the user's train loop (``run_torch_trainer``): ``TorchTrainer`` with
      one NCCL GPU worker, an actor of the port's runtime in a ``{"CPU": 1,
      "GPU": 1}`` placement-group bundle, over ``from_numpy`` int32 token
-     rows, read by
+     rows dealt by ``streaming_split``'s coordinator actor, read by
      ``get_dataset_shard("train").iter_torch_batches`` onto the card
      (pinned staging, a side stream, two batches in flight) into phase
      9's GPT-2 124M step, 3 warm-up and 24 timed steps: the loss finite
@@ -147,6 +147,23 @@ Phases, each fatal on failure:
      bit after every step, each step's loss equal to this process's
      full-batch step, 12 / 12 / 12 launches a step on each rank; the
      allreduce's seconds and GB/s;
+ 10d. the data plane on the card (``run_data``), ``Dataset`` a lazy plan
+     run by the streaming executor on the port's runtime: (a)
+     ``build_llm_processor`` at the serving width with two engine actors
+     at ``num_gpus`` 0.5 over 64 prompts in 4 blocks of 16: every row back
+     with 32 tokens, from two processes other than this one, each
+     launching the forward kernel, the ids equal to the bit to the same
+     batches through ``_EngineUDF``s in this process, one for each actor
+     fed that actor's batches in its order; tok/s over the
+     batches' span and over the wall time against phase 5's, the actors'
+     seconds to ready; (b) ``TorchTrainer`` with one GPU worker fed by
+     ``range`` -> ``map_batches`` (token ids from a seed per row) ->
+     seeded ``random_shuffle`` through ``streaming_split``'s coordinator
+     into phase 9's step, 11 steps: the worker's and the coordinator's
+     processes not this one, each batch equal to this process's run of
+     the pipeline in order (sha256), the first loss equal to this
+     process's step, 12 / 12 / 12 launches a step; tokens/s against phase
+     10's, ``next(batch)`` p50, the in-process run's stats per op;
  11. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
@@ -3335,12 +3352,14 @@ def torch_trainer_loop(config):
     onto the worker's GPU.  Reports the losses, each ``next(batch)``
     wait, the timed steps' device time, whether each batch's copy had
     completed when the step before it ended, a checksum of the token ids
-    consumed, and the worker's kernel launches over the loop (its counters
-    are its own process's)."""
+    consumed (all of them, and each batch's), the pid of the split
+    coordinator feeding its shard, and the worker's kernel launches over
+    the loop (its counters are its own process's)."""
     import hashlib
 
     import torch
 
+    import ray_tpu_torch as rt
     from ray_tpu_torch import train
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.train import step as train_step
@@ -3382,7 +3401,15 @@ def torch_trainer_loop(config):
     hidden = [ends[n].elapsed_time(copied[n + 1]) <= 0
               for n in range(warmup, n_steps - 1)]
     step_ms = timed[0].elapsed_time(timed[1]) / config["timed"]
+    # the process feeding this worker's shard: a streaming_split coordinator
+    coord = getattr(getattr(train.get_dataset_shard("train"), "_bundles",
+                            None), "_coord", None)
+    coord_pid = (rt.get(coord.__rtpu_apply__.remote(process_cuda),
+                        timeout=60)[0] if coord is not None else None)
     train.report({
+        "batch_sha256": [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                         for t in kept],
+        "coordinator_pid": coord_pid,
         "losses": [float(x) for x in losses], "wait_ms": waits,
         "step_ms": step_ms,
         "tokens_per_s": config["batch"] * (rows.shape[1] - 1)
@@ -3408,8 +3435,10 @@ def h2d_gbps(nbytes: int, pinned: bool, iters: int) -> float:
 def run_torch_trainer(report):
     """The user's loop on the card: ``TorchTrainer`` at one GPU worker, an
     actor of the port's runtime in a ``{"CPU": 1, "GPU": 1}`` bundle
-    (NCCL at world size 1), over ``from_numpy`` token rows, read through
-    ``iter_torch_batches`` onto the card into ``run_trainer``'s GPT-2 124M
+    (NCCL at world size 1), over ``from_numpy`` token rows (one block in
+    the store, dealt by ``streaming_split``'s coordinator actor), read
+    through ``iter_torch_batches`` onto the card into ``run_trainer``'s
+    GPT-2 124M
     step (``torch_trainer_loop``).  Fails unless the loss is finite and
     falls, the rows consumed are the source's in order, the worker's first
     loss equals this process's own step on the same parameters and first
@@ -3489,7 +3518,8 @@ def run_torch_trainer(report):
           f"{own_loss:.6f} (diff {abs(losses[0] - own_loss):.3e}, tol "
           f"{STEP_LOSS_TOL:.0e}); {m['step_ms']:.3f} ms a timed step, "
           f"{m['tokens_per_s']:.1f} tokens/s = {ratio:.4f} of run_trainer's "
-          f"{report['trainer']['tokens_per_s']:.1f}; next(batch) wait p50 "
+          f"{report['trainer']['tokens_per_s']:.1f} (PR 15's run 8, before "
+          f"the split coordinator: 0.9995); next(batch) wait p50 "
           f"{np.percentile(waits, 50):.4f} ms p90 "
           f"{np.percentile(waits, 90):.4f} ms; copy done before the step "
           f"on the batch before it ended: {m['hidden_share']:.3f} of "
@@ -4433,6 +4463,330 @@ def run_actor_plane(report):
           f"2 processes that held the card exited {res['exit_wait_s']:.2f} "
           f"s after the shutdown; session {node.session_dir}; phase "
           f"{res['phase_s']:.1f} s", flush=True)
+    return launches
+
+
+# The data plane on the card (``run_data``).  (a) ``build_llm_processor``
+# over the serving model in two engine actors at ``num_gpus`` 0.5: 64
+# prompts in 4 blocks of 16 rows, one engine call a block.  (b) A
+# preprocessing pipeline (``range`` -> ``map_batches`` making each row's
+# token ids from ``default_rng(DATA_SEED + id)``, the stand-in for
+# tokenization -> seeded ``random_shuffle``) into ``TorchTrainer``'s one
+# GPU worker through ``streaming_split``'s coordinator, phase 9's step.
+DATA_SEED = 37
+DATA_PROMPTS, DATA_BLOCKS, DATA_BATCH, DATA_MAX_TOKENS = 64, 4, 16, 32
+DATA_WARMUP, DATA_TIMED = 3, 8  # (b): 11 steps of BATCH rows
+DATA_ROWS = (DATA_WARMUP + DATA_TIMED) * BATCH
+
+
+def data_engine_udf():
+    """``_EngineUDF`` reporting, in each output batch, its process's pid,
+    whether the process made a CUDA context, the forward kernel's
+    launches in the process before and after the batch, the batch's
+    start and end and when the engine became ready (``time.time()``).
+    Made in a function so that it travels by value."""
+    from ray_tpu_torch.llm import batch as batch_mod
+
+    class ProbedEngineUDF(batch_mod._EngineUDF):
+        def __init__(self, config):
+            super().__init__(config)
+            self._ready_at = time.time()
+
+        def __call__(self, batch):
+            import numpy as np
+            import torch
+
+            from ray_tpu_torch.ops import attention
+
+            before = attention.flash_forward.launches
+            start = time.time()
+            out = super().__call__(batch)
+            torch.cuda.synchronize()
+            end = time.time()
+            n = len(out["prompt"])
+            probes = {"pid": os.getpid(),
+                      "cuda": torch.cuda.is_initialized(),
+                      "launches_before": before,
+                      "launches_after": attention.flash_forward.launches,
+                      "start": start, "end": end,
+                      "ready_at": self._ready_at}
+            for k, v in probes.items():
+                out[k] = np.full(n, v)
+            return out
+
+    return ProbedEngineUDF
+
+
+def data_make_rows(batch, vocab):
+    """Each row's SEQ + 1 token ids, from ``default_rng(DATA_SEED + id)``
+    below ``vocab``."""
+    import numpy as np
+
+    return {"tokens": np.stack([
+        np.random.default_rng(DATA_SEED + int(i)).integers(0, vocab, SEQ + 1)
+        for i in batch["id"]])}
+
+
+def data_pipeline(data, vocab):
+    return data.range(DATA_ROWS).map_batches(
+        data_make_rows, fn_kwargs={"vocab": vocab}).random_shuffle(
+            seed=DATA_SEED)
+
+
+def data_processor_config():
+    from ray_tpu_torch.llm import EngineConfig
+    from ray_tpu_torch.llm.batch import ProcessorConfig
+
+    return ProcessorConfig(
+        model_loader=serve_model_loader,
+        engine_config=EngineConfig(max_slots=16, num_pages=512,
+                                   page_size=16, max_seq_len=1024),
+        concurrency=2, num_gpus=0.5, batch_size=DATA_BATCH,
+        sampling={"max_tokens": DATA_MAX_TOKENS})
+
+
+def run_data_processor(report, res):
+    """(a): returns the forward kernel's launches in the engine actors'
+    processes and their pids."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import batch as batch_mod
+
+    prompts = [frontend_prompt(300 + i, 64) for i in range(DATA_PROMPTS)]
+    config = data_processor_config()
+    probed = data_engine_udf()
+    genuine = batch_mod._EngineUDF
+    batch_mod._EngineUDF = probed  # the processor's map_batches takes it
+    try:
+        ds = batch_mod.build_llm_processor(config)(data.from_items(
+            [{"prompt": p} for p in prompts],
+            override_num_blocks=DATA_BLOCKS))
+    finally:
+        batch_mod._EngineUDF = genuine
+    t0 = time.time()
+    rows = ds.take_all()
+    wall = time.time() - t0
+    n_tok = sum(len(r["generated_tokens"]) for r in rows)
+    pids = sorted({int(r["pid"]) for r in rows})
+    batches = {}  # (pid, start) -> the batch's rows
+    for r in rows:
+        batches.setdefault((int(r["pid"]), float(r["start"])), []).append(r)
+    launches = {pid: sum(int(b[0]["launches_after"])
+                         - int(b[0]["launches_before"])
+                         for (p, _), b in batches.items() if p == pid)
+                for pid in pids}
+    span = (max(float(r["end"]) for r in rows)
+            - min(float(r["start"]) for r in rows))
+    ready_s = max(float(r["ready_at"]) for r in rows) - t0
+    engine_rate = report["engine"]["output_tok_s"]
+    res["a"] = {
+        "rows": len(rows), "tokens": n_tok, "pids": pids,
+        "batches": len(batches), "launches_by_pid": launches,
+        "cuda": sorted({bool(r["cuda"]) for r in rows}),
+        "tok_s_span": n_tok / span, "tok_s_wall": n_tok / wall,
+        "span_s": span, "wall_s": wall, "actors_ready_s": ready_s,
+        "engine_tok_s": engine_rate}
+    print(f"data (a): build_llm_processor, 2 engine actors at num_gpus 0.5 "
+          f"(pids {pids}, this process {os.getpid()}), {len(rows)} rows in "
+          f"{len(batches)} batches of {DATA_BATCH}, {n_tok} tokens: "
+          f"{n_tok / span:.1f} output tok/s over the batches' span "
+          f"({span:.3f} s) = {n_tok / span / engine_rate:.4f} of "
+          f"run_engine's {engine_rate:.1f}; {n_tok / wall:.1f} tok/s over "
+          f"the wall time with the actors' start ({wall:.3f} s); both "
+          f"actors ready {ready_s:.2f} s after take_all; forward launches "
+          f"by process {launches}", flush=True)
+    short = [len(r["generated_tokens"]) for r in rows
+             if len(r["generated_tokens"]) != DATA_MAX_TOKENS]
+    if (len(rows) != DATA_PROMPTS or short
+            or [r["prompt"] for r in rows] != prompts):
+        raise SystemExit(f"data (a): {len(rows)} rows, short {short}")
+    if len(pids) != 2 or os.getpid() in pids or res["a"]["cuda"] != [True]:
+        raise SystemExit(f"data (a): engine processes {pids}, CUDA "
+                         f"{res['a']['cuda']}")
+    if not all(n > 0 for n in launches.values()):
+        raise SystemExit(f"data (a): forward launches by process {launches}")
+    return rows, sum(launches.values()), pids
+
+
+def data_reference_ids(rows):
+    """(a)'s batches through ``_EngineUDF``s built in this process on the
+    same config, one for each engine actor, fed that actor's batches in
+    the order it ran them: an engine's prefix cache makes the path of a
+    prefill depend on the engine's history (a prompt sharing only its BOS
+    token with an earlier one takes the suffix path, ROADMAP.md's faults
+    ported as they are), so each reference engine must have the actor's
+    history.  Returns how many rows' ids differ."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm import batch as batch_mod
+
+    by_pid = {}  # pid -> its batches' rows, in the order it ran them
+    for r in rows:
+        by_pid.setdefault(int(r["pid"]), {}).setdefault(
+            float(r["start"]), []).append(r)
+    differ = 0
+    for pid, batches in sorted(by_pid.items()):
+        udf = batch_mod._EngineUDF(data_processor_config())
+        try:
+            for _, chunk in sorted(batches.items()):
+                want = udf({"prompt": np.array([r["prompt"]
+                                                for r in chunk])})
+                differ += sum(
+                    list(map(int, r["generated_tokens"]))
+                    != list(map(int, w))
+                    for r, w in zip(chunk, want["generated_tokens"]))
+        finally:
+            udf.shutdown()
+            del udf
+            torch.cuda.empty_cache()
+    return differ
+
+
+def run_data_trainer(report, res):
+    """(b): returns the worker's launches and its pid."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+
+    cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)  # run_trainer's
+    n_steps = DATA_WARMUP + DATA_TIMED
+    config = {"cfg": cfg, "seed": DATA_SEED, "batch": BATCH,
+              "warmup": DATA_WARMUP, "timed": DATA_TIMED}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    storage = tempfile.mkdtemp(dir=OUT_DIR)
+    t0 = time.monotonic()
+    try:
+        result = train.TorchTrainer(
+            torch_trainer_loop, train_loop_config=config,
+            torch_config=train.TorchConfig(),
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name="data_trainer",
+                                       storage_path=storage),
+            datasets={"train": data_pipeline(data, cfg.vocab_size)}).fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    fit_s = time.monotonic() - t0
+    if result.error is not None:
+        raise SystemExit(f"data (b): the TorchTrainer loop failed: "
+                         f"{result.error}")
+    m = result.metrics
+
+    # the same pipeline in this process, and its stats
+    ds = data_pipeline(data, cfg.vocab_size)
+    t0 = time.monotonic()
+    own = [b["tokens"] for b in ds.iter_batches(batch_size=BATCH)]
+    own_s = time.monotonic() - t0
+    own_sha = [hashlib.sha256(np.ascontiguousarray(b).tobytes()).hexdigest()
+               for b in own]
+    stats = ds.stats()
+
+    # this process's own first step on the same parameters and first rows
+    gen = torch.Generator(device="cuda").manual_seed(DATA_SEED)
+    opt = train_step.default_optimizer(warmup_steps=1)
+    state = train_step.create_train_state(gpt2, cfg, opt, gen, device="cuda")
+    step = train_step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    _, first = step(state, torch.from_numpy(own[0]).cuda().long())
+    own_loss = first["loss"].item()
+    del state, step, first
+    torch.cuda.empty_cache()
+
+    waits = np.asarray(m["wait_ms"][DATA_WARMUP:])
+    ref_rate = report["torch_trainer"]["tokens_per_s"]
+    want = {k: cfg.n_layers * n_steps for k in m["launches"]}
+    res["b"] = dict(
+        m, fit_s=fit_s, own_first_loss=own_loss, own_batch_sha256=own_sha,
+        own_s=own_s, stats=stats, tokens_per_s_ratio=m["tokens_per_s"]
+        / ref_rate, wait_ms_p50=float(np.percentile(waits, 50)))
+    print(f"data (b): TorchTrainer fed by range -> map_batches -> "
+          f"random_shuffle(seed={DATA_SEED}) through streaming_split "
+          f"(worker pid {m['pid']}, coordinator pid {m['coordinator_pid']}, "
+          f"this process {os.getpid()}; {fit_s:.1f} s for fit): {n_steps} "
+          f"steps of GPT-2 124M, loss first {m['losses'][0]:.6f} against "
+          f"this process's own step {own_loss:.6f} (diff "
+          f"{abs(m['losses'][0] - own_loss):.3e}, tol {STEP_LOSS_TOL:.0e}); "
+          f"{m['step_ms']:.3f} ms a timed step, {m['tokens_per_s']:.1f} "
+          f"tokens/s = {res['b']['tokens_per_s_ratio']:.4f} of "
+          f"run_torch_trainer's {ref_rate:.1f}; next(batch) wait p50 "
+          f"{res['b']['wait_ms_p50']:.4f} ms; batches equal to this "
+          f"process's run of the pipeline "
+          f"{sum(a == b for a, b in zip(m['batch_sha256'], own_sha))} of "
+          f"{len(own_sha)}; worker launches {m['launches']}; the pipeline "
+          f"in this process ({own_s:.2f} s): "
+          + "; ".join(stats.splitlines()), flush=True)
+    if os.getpid() in (m["pid"], m["coordinator_pid"]) or not m[
+            "coordinator_pid"]:
+        raise SystemExit(f"data (b): worker pid {m['pid']}, coordinator pid "
+                         f"{m['coordinator_pid']}")
+    if m["batch_sha256"] != own_sha or not m["exhausted"]:
+        raise SystemExit("data (b): the batches the worker consumed are not "
+                         "this process's run of the pipeline, in order")
+    if abs(m["losses"][0] - own_loss) > STEP_LOSS_TOL:
+        raise SystemExit("data (b): the worker's first loss disagrees with "
+                         "this process's step on the same rows")
+    if m["launches"] != want:
+        raise SystemExit(f"data (b): worker launches {m['launches']}, want "
+                         f"{want}")
+    return m["launches"], m["pid"]
+
+
+def run_data(report):
+    """The data plane on the card (after ``run_actor_plane``), on the
+    port's runtime.  (a) ``build_llm_processor`` with two engine actors at
+    ``num_gpus`` 0.5 over ``from_items`` of 64 prompts in 4 blocks
+    (``data_engine_udf`` reports from each batch): 64 rows of 32 tokens
+    from two processes other than this one, each launching the forward
+    kernel, the ids of every row equal to the bit to the same batch
+    through an ``_EngineUDF`` in this process with the same history
+    (``data_reference_ids``); tok/s over the batches' span and over the
+    wall time against ``run_engine``'s, the actors' seconds to ready.  (b) ``TorchTrainer`` with one GPU worker fed by
+    ``data_pipeline`` through ``streaming_split``'s coordinator into
+    phase 9's step, 3 warm-up and 8 timed steps: the worker's and the
+    coordinator's pids not this one's, each batch's sha256 equal to this
+    process's run of the pipeline in order, the first loss equal to this
+    process's step within STEP_LOSS_TOL, 12 / 12 / 12 launches a step;
+    tokens/s against ``run_torch_trainer``'s, ``next(batch)`` p50, and the
+    in-process run's stats.  Every process that held the card has exited
+    when the phase ends.  Returns the kernels' launches on the phase's
+    paths."""
+    import ray_tpu_torch as rt
+
+    t_phase = time.monotonic()
+    res = {}
+    node = card_runtime()
+    card_pids = set()
+    try:
+        rows, fwd_a, pids = run_data_processor(report, res)
+        card_pids |= set(pids)
+        res["a"]["exit_wait_s"] = wait_exited(pids, "data (a)")
+        launches, worker_pid = run_data_trainer(report, res)
+        card_pids.add(worker_pid)
+    finally:
+        rt.shutdown()
+    res["exit_wait_s"] = wait_exited(card_pids, "data")
+    differ = data_reference_ids(rows)
+    res["a"]["ids_differ"] = differ
+    print(f"data (a): rows whose ids differ from this process's "
+          f"_EngineUDFs on the same batches in the actors' order: {differ} "
+          f"of {len(rows)}", flush=True)
+    if differ:
+        raise SystemExit(f"data (a): {differ} rows' ids differ from this "
+                         f"process's engine")
+    launches = dict(launches, flash_fwd=launches["flash_fwd"] + fwd_a)
+    res["launches"] = launches
+    res["phase_s"] = time.monotonic() - t_phase
+    report["data"] = res
+    print(f"data: launches on the phase's paths {launches}; the "
+          f"{len(card_pids)} processes that held the card exited; session "
+          f"{node.session_dir}; phase {res['phase_s']:.1f} s", flush=True)
     return launches
 
 
@@ -6377,6 +6731,7 @@ def main() -> int:
     torch_trainer_launches = run_torch_trainer(report)
     tune_launches = run_tune(report)
     plane_launches = run_actor_plane(report)
+    data_launches = run_data(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
     mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
@@ -6400,6 +6755,7 @@ def main() -> int:
                    "torch_trainer": torch_trainer_launches[name],
                    "tune": tune_launches[name],
                    "actor_plane": plane_launches[name],
+                   "data": data_launches[name],
                    "moe_trainer": moe_launches[name],
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":

@@ -5,12 +5,15 @@ The port's runs where there is no pyarrow (the GPU machine has none), so a
 block is ``{column: ndarray}``: a multi-dim column (token rows, images)
 keeps its trailing shape as it is, where the JAX package stores a
 fixed-size list with the shape in the field's metadata.  The batch format
-is "numpy"; "pandas" and "pyarrow" raise.
+is "numpy"; "pandas" and "pyarrow" raise.  A null (a row without a
+column, an outer join's missing side) is None in an object column, where
+the JAX package holds an Arrow null.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Iterator, List
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
@@ -24,6 +27,33 @@ VALUE_COL = "item"
 def num_rows(block: Block) -> int:
     """The rows of ``block`` (0 for a block with no column)."""
     return len(next(iter(block.values()))) if block else 0
+
+
+def size_bytes(block: Block) -> int:
+    return sum(v.nbytes for v in block.values())
+
+
+def schema_of(block: Block) -> Dict[str, tuple]:
+    """``{column: (dtype, trailing shape)}``: the port's schema, where the
+    JAX package returns a pyarrow schema."""
+    return {k: (v.dtype, v.shape[1:]) for k, v in block.items()}
+
+
+@dataclass
+class BlockMetadata:
+    """Sidecar facts about a block, computed where the block was produced so
+    the driver never has to fetch the block to plan (Ray: block.py
+    BlockMetadata)."""
+
+    num_rows: int
+    size_bytes: int
+    schema_str: str = ""
+
+    @staticmethod
+    def of(block: Block) -> "BlockMetadata":
+        return BlockMetadata(num_rows=num_rows(block),
+                             size_bytes=size_bytes(block),
+                             schema_str=str(schema_of(block)))
 
 
 def from_rows(rows: Iterable[Any]) -> Block:
@@ -45,10 +75,30 @@ def from_rows(rows: Iterable[Any]) -> Block:
     return from_batch(cols)
 
 
+def _as_column(v: Any) -> np.ndarray:
+    """A column from a batch's value.  An array stays as it is; a list of
+    equal-shape arrays stacks into one multi-dim column; a list holding
+    Python lists (Arrow's list column) or ragged arrays becomes an object
+    column of its elements as they are."""
+    if isinstance(v, np.ndarray):
+        return v
+    if isinstance(v, (list, tuple)) and v:
+        nested = any(isinstance(x, (list, tuple)) for x in v)
+        arrays = all(isinstance(x, np.ndarray) for x in v)
+        if arrays and len({(x.shape, x.dtype) for x in v}) == 1:
+            return np.stack(v)
+        if nested or arrays:
+            out = np.empty(len(v), dtype=object)
+            for i, x in enumerate(v):
+                out[i] = x
+            return out
+    return np.asarray(v)
+
+
 def from_batch(batch: Any) -> Block:
     """A block from a dict of columns or a list of rows."""
     if isinstance(batch, dict):
-        block = {k: np.asarray(v) for k, v in batch.items()}
+        block = {k: _as_column(v) for k, v in batch.items()}
         if len({len(v) for v in block.values()}) > 1:
             raise ValueError("a block's columns must have equal lengths, "
                              f"got {[(k, len(v)) for k, v in block.items()]}")
@@ -79,16 +129,50 @@ def rows_of(block: Block) -> Iterator[Dict[str, Any]]:
         yield {k: col[i] for k, col in cols.items()}
 
 
+def _nulls(n: int) -> np.ndarray:
+    return np.full(n, None, dtype=object)
+
+
 def concat(blocks: List[Block]) -> Block:
-    """The blocks' rows in order, in one block."""
+    """The blocks' rows in order, in one block.  Its columns are the union
+    of the blocks' in the order first seen; a block that lacks one gives
+    None there, as Arrow's promoting concat gives nulls."""
     blocks = [b for b in blocks if num_rows(b) > 0] or blocks[:1]
     if not blocks:
         return {}
     if len(blocks) == 1:
         return blocks[0]
-    return {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
+    names: Dict[str, None] = {}
+    for b in blocks:
+        names.update(dict.fromkeys(b))
+    return {k: np.concatenate([b[k] if k in b else _nulls(num_rows(b))
+                               for b in blocks]) for k in names}
 
 
 def slice_block(block: Block, start: int, stop: int) -> Block:
     """Rows ``start:stop`` of ``block`` (views)."""
     return {k: v[start:stop] for k, v in block.items()}
+
+
+def take(block: Block, idx) -> Block:
+    """The rows at ``idx`` (integer indices or a boolean mask), copied."""
+    return {k: v[idx] for k, v in block.items()}
+
+
+def split_by_bytes(block: Block, target_bytes: int) -> List[Block]:
+    """Slice an oversized output block to ~target_bytes chunks (Ray: map
+    tasks yield blocks bounded by target_max_block_size)."""
+    n, nbytes = num_rows(block), size_bytes(block)
+    if n == 0 or nbytes <= target_bytes:
+        return [block]
+    per_row = max(1, nbytes // max(1, n))
+    rows_per = max(1, target_bytes // per_row)
+    return [slice_block(block, i, min(i + rows_per, n))
+            for i in range(0, n, rows_per)]
+
+
+def empty_like(block: Optional[Block]) -> Block:
+    """No rows, ``block``'s columns."""
+    if block is None:
+        return {}
+    return {k: v[:0] for k, v in block.items()}

@@ -1,30 +1,43 @@
 """DataIterator: batched consumption with prefetch and the copy onto the GPU.
 
-Counterpart of ``ray_tpu/data/iterator.py``: slices a stream of blocks
-into fixed-size batches, with an optional local shuffle buffer and
-background prefetch.  The JAX package fetches each block from its object
-store; the port has no store, and its source is any re-runnable iterable
-of numpy blocks (``data/block.py``), such as the list a ``Dataset`` shard
-holds.  ``iter_torch_batches`` onto a CUDA device is the counterpart of
-``iter_jax_batches``: each batch is staged in pinned host memory and
-copied without blocking on a side stream, two batches in flight, so the
-copy of batch N+1 overlaps the step on batch N; the consumer's stream
-waits on a batch's copy before it receives the batch.
+Counterpart of ``ray_tpu/data/iterator.py`` (Ray's python/ray/data/
+iterator.py, _internal/block_batching/iter_batches.py): slices a stream of
+(block_ref, metadata) bundles into fixed-size batches, fetching each block
+from the store three ahead on a feed thread, with an optional local
+shuffle buffer and background prefetch.  The source is any re-runnable
+iterable of bundles: a dataset's plan (``_BundleIterable``) or one shard
+of a ``streaming_split`` (``split.ShardIterable``).  ``iter_torch_batches``
+onto a CUDA device is the counterpart of ``iter_jax_batches``: each batch
+is staged in pinned host memory and copied without blocking on a side
+stream, two batches in flight, so the copy of batch N+1 overlaps the step
+on batch N; the consumer's stream waits on a batch's copy before it
+receives the batch.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
-from typing import Any, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
+import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data import block as block_mod
 from ray_tpu_torch.data.block import Block
 
 FEED_THREAD = "ray_tpu_torch-data-feed"
+
+
+class _BundleIterable:
+    """Re-runnable source of (ref, meta) bundles from a dataset plan."""
+
+    def __init__(self, make_iter: Callable[[], Iterator]):
+        self._make_iter = make_iter
+
+    def __iter__(self):
+        return self._make_iter()
 
 
 def _batch_blocks(blocks: Iterator[Block], batch_size: Optional[int],
@@ -189,15 +202,21 @@ class _PinnedCopies:
 
 
 class DataIterator:
-    """Batches from a re-runnable iterable of blocks.  Holds only the
-    source until it is iterated, so a shard of numpy blocks pickles (the
-    trainer sends shards to its workers)."""
+    """Batches from a re-runnable iterable of (ref, meta) bundles.  Holds
+    only the source until it is iterated, so a shard pickles (the trainer
+    sends shards to its workers)."""
 
-    def __init__(self, blocks: Iterable[Block]):
-        self._source = blocks
+    def __init__(self, bundles: Any):
+        self._bundles = bundles
 
     def _blocks(self) -> Iterator[Block]:
-        return iter(self._source)
+        # Fetch on a feed thread with a small window so the NEXT block's
+        # store get overlaps consumption of the current one.
+        def fetch():
+            for ref, _meta in self._bundles:
+                yield rt.get(ref)
+
+        return _prefetched(fetch(), 3)
 
     def iter_batches(self, *, batch_size: Optional[int] = 256,
                      batch_format: str = "numpy",
@@ -241,6 +260,26 @@ class DataIterator:
         if dev.index is None:  # the caller's device, for the feed thread
             dev = torch.device("cuda", torch.cuda.current_device())
         return _consumed(_prefetched(_copied(host, dev, dtypes), 2), dev)
+
+    def iter_jax_batches(self, **kw):
+        raise NotImplementedError(
+            "iter_jax_batches: the port has no JAX; use iter_torch_batches")
+
+    def iter_tf_batches(self, **kw):
+        raise ImportError("iter_tf_batches needs tensorflow, which neither "
+                          "image has")
+
+    def to_tf(self, feature_columns, label_columns, **kw):
+        raise ImportError("to_tf needs tensorflow, which neither image has")
+
+    def materialize(self):
+        from ray_tpu_torch.data import logical as L
+        from ray_tpu_torch.data.dataset import MaterializedDataset
+
+        bundles = list(self._bundles)
+        return MaterializedDataset(
+            L.LogicalPlan([L.InputData(name="Input", bundles=bundles)]),
+            bundles)
 
 
 def _copied(host: Iterator, device, dtypes) -> Iterator[CudaBatch]:

@@ -2,11 +2,11 @@
 
 Counterpart of ``ray_tpu/llm/batch.py``: ``build_llm_processor`` returns a
 dataset -> dataset callable whose stages are ``map_batches`` ops —
-tokenize → engine generate (one engine per UDF instance) → detokenize.
-It is duck-typed over any dataset with ``map`` and ``map_batches`` (the
-JAX package's ``ray_tpu.data``, or another with the same methods) and
-imports no data package; ``_EngineUDF`` also runs alone on a dict of
-numpy columns.
+tokenize → engine generate (an actor pool, one engine per actor, each
+holding ``num_gpus`` of a card) → detokenize.  It runs over the port's
+``ray_tpu_torch.data.Dataset`` (any dataset with ``map`` and
+``map_batches`` will do; it imports no data package); ``_EngineUDF`` also
+runs alone on a dict of numpy columns.
 """
 
 from __future__ import annotations
@@ -29,9 +29,10 @@ class ProcessorConfig:
     model_loader: Callable = None  # () -> (state, LlamaConfig)
     tokenizer: Optional[str] = None
     engine_config: EngineConfig = field(default_factory=EngineConfig)
-    concurrency: int = 1  # engine UDF instances
+    concurrency: int = 1  # engine actors
     batch_size: int = 16
     sampling: Dict[str, Any] = field(default_factory=dict)
+    num_gpus: Optional[float] = None  # each engine actor's share of a card
     # wrap each prompt in the tokenizer's chat template
     apply_chat_template: bool = False
     device: DeviceLike = None  # None: CUDA; "cpu" runs the plain versions
@@ -90,6 +91,7 @@ def build_llm_processor(config: ProcessorConfig,
             fn_constructor_args=(config,),
             concurrency=config.concurrency,
             batch_size=config.batch_size,
+            num_gpus=config.num_gpus,
             batch_format="numpy")
         if postprocess is not None:
             ds = ds.map(postprocess)

@@ -179,6 +179,11 @@ class TrainController:
         finally:
             if group is not None:
                 group.shutdown()
+            # the next attempt re-splits: end this one's split coordinators
+            # (the JAX package's live on with the session)
+            from ray_tpu_torch.data.split import kill_coordinators
+
+            kill_coordinators(list(shards_cache.values()))
 
     def _poll_until_done(self, group: WorkerGroup) -> Optional[str]:
         n = group.num_workers

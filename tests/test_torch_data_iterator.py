@@ -1,18 +1,23 @@
-"""The port's data iterator and in-process Dataset on the CPU.
+"""The port's data iterator on the CPU.
 
 Against the JAX package's runtime-free functions on pyarrow blocks built
 from the same numpy columns: batching of ragged blocks, the local shuffle's
 permutations, ``to_batch`` / ``rows_of``, and the constructors' block
-layouts.  In the port alone: an upstream error reaches the consumer, an
-early ``break`` stops the feed threads, ``iter_torch_batches`` on the CPU
-applies ``dtypes`` and never falls back from CUDA, ``streaming_split``
-deals blocks round-robin, and a shard pickles.
+layouts.  In the port alone, over (ref, meta) bundles in the port's
+runtime's store (a module fixture starts it): an upstream error reaches
+the consumer, an early ``break`` stops the feed threads,
+``iter_torch_batches`` on the CPU applies ``dtypes`` and never falls back
+from CUDA, ``streaming_split``'s coordinator deals blocks round-robin, a
+shard pickles into another process, and a plan of more than 1 MB reaches
+a fresh coordinator through the store.
 """
 
 import pickle
+import sys
 import threading
 import time
 
+import cloudpickle
 import numpy as np
 import pytest
 import torch
@@ -24,15 +29,46 @@ from ray_tpu_torch import data
 from ray_tpu_torch.data import block as tblock
 from ray_tpu_torch.data import iterator as titer
 
+# the task that reads a pickled shard runs in a worker that cannot import
+# this module: pickle it by value
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
+
 SIZES = (5, 0, 3, 9, 1, 6)
+TIMEOUT = 120
 
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")  # the worker processes
+        yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def runtime(one_thread):
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4, min_workers=2, object_store_memory=1 << 28)
+    try:
+        yield rt
+    finally:
+        rt.shutdown()
+
+
+def _bundles(blocks):
+    import ray_tpu_torch as rt
+
+    return [(rt.put(b), tblock.BlockMetadata.of(b)) for b in blocks]
+
+
+def _blocks_of(ds):
+    """The dataset's blocks, in order, out of the store."""
+    import ray_tpu_torch as rt
+
+    return [rt.get(ref, timeout=TIMEOUT) for ref, _ in ds.iter_bundles()]
 
 
 def _columns():
@@ -114,26 +150,27 @@ def test_constructors_match_jax_block_layouts():
     for n, par in ((10, 3), (7, 8), (0, 4)):
         want = [jblock.to_batch(b) for task in jsource.range_tasks(n, par)
                 for b in task()]
-        got = list(data.range(n, override_num_blocks=par)._blocks)
+        got = _blocks_of(data.range(n, override_num_blocks=par))
         _assert_batches_equal(want, got)
     items = [{"a": i, "b": float(i) / 2} for i in range(11)]
     want = [jblock.to_batch(b) for task in jsource.items_tasks(items, 4)
             for b in task()]
-    got = list(data.from_items(items, override_num_blocks=4)._blocks)
+    got = _blocks_of(data.from_items(items, override_num_blocks=4))
     _assert_batches_equal(want, got)
     arr = np.arange(24, dtype=np.int32).reshape(4, 6)
     want = jblock.to_batch(jblock.from_batch({"tokens": arr}))
-    (got,) = data.from_numpy(arr, column="tokens")._blocks
+    (got,) = _blocks_of(data.from_numpy(arr, column="tokens"))
     _assert_batches_equal([want], [got])
 
 
 def test_iter_batches_and_rows():
-    ds = data.Dataset([tblock.from_batch(c) for c in _columns()])
-    got = list(ds.iter_batches(batch_size=4, drop_last=True,
+    it = data.DataIterator(_bundles([tblock.from_batch(c)
+                                     for c in _columns()]))
+    got = list(it.iter_batches(batch_size=4, drop_last=True,
                                local_shuffle_buffer_size=8,
                                local_shuffle_seed=1))
     assert [len(b["id"]) for b in got] == [4] * (sum(SIZES) // 4)
-    rows = list(ds.iter_rows())
+    rows = list(it.iter_rows())
     assert [r["id"] for r in rows] == list(range(sum(SIZES)))
     assert rows[3]["v"].shape == (2, 3)
 
@@ -199,10 +236,10 @@ def test_iter_torch_batches_onto_cuda_raises_without_it(monkeypatch):
 
 
 def test_streaming_split_deals_blocks_round_robin():
-    """Block i goes to shard i % n, as the JAX package's split coordinator
-    deals its bundles."""
+    """Block i goes to shard i % n, dealt by one coordinator actor in the
+    order the JAX package's deals its bundles."""
     ds = data.range(20, override_num_blocks=7)
-    blocks = [b["id"].tolist() for b in ds._blocks]
+    blocks = [b["id"].tolist() for b in _blocks_of(ds)]
     shards = ds.streaming_split(3)
     for r, shard in enumerate(shards):
         got = [b["id"].tolist() for b in
@@ -212,12 +249,71 @@ def test_streaming_split_deals_blocks_round_robin():
         ds.streaming_split(0)
 
 
+def _read_shard(shard):
+    return np.concatenate([b["tokens"]
+                           for b in shard.iter_batches(batch_size=4)])
+
+
 def test_a_shard_pickles():
-    ds = data.from_numpy(np.arange(30).reshape(10, 3), column="tokens")
+    """A shard pickles (the trainer sends shards to its workers) and
+    reads its coordinator's rows in another process."""
+    import ray_tpu_torch as rt
+
+    arr = np.arange(30).reshape(10, 3)
+    ds = data.from_numpy(arr, column="tokens")
     (shard,) = ds.streaming_split(1)
     assert isinstance(shard, data.DataIterator)
     copy = pickle.loads(pickle.dumps(shard))
-    want = [b["tokens"] for b in shard.iter_batches(batch_size=4)]
-    got = [b["tokens"] for b in copy.iter_batches(batch_size=4)]
-    _assert_batches_equal([{"t": np.concatenate(want)}],
-                          [{"t": np.concatenate(got)}])
+    got = rt.get(rt.remote(_read_shard).remote(copy), timeout=TIMEOUT)
+    _assert_batches_equal([{"t": arr}], [{"t": got}])
+
+
+class _Recorder:
+    """Stands in for a module's ``cloudpickle``: records the size of every
+    blob it makes."""
+
+    def __init__(self, sizes):
+        self._sizes = sizes
+
+    def dumps(self, obj, *a, **k):
+        blob = cloudpickle.dumps(obj, *a, **k)
+        self._sizes.append(len(blob))
+        return blob
+
+    def __getattr__(self, name):
+        return getattr(cloudpickle, name)
+
+
+def test_a_plan_of_more_than_a_megabyte_reaches_a_fresh_coordinator(
+        monkeypatch):
+    """The native transport drops a new worker that reads nothing for 10 s
+    (ROADMAP.md, faults ported as they are), so nothing large may reach a
+    new actor inline: the coordinator's plan (here 1.3 MB of rows inside
+    its read tasks) and an actor pool's UDF go through the store, and so
+    do read tasks that hold their rows.  Every actor creation and task
+    this process sends stays under the executor's ``INLINE_MAX``; the
+    rows arrive."""
+    from ray_tpu_torch.core import actor, remote_function
+    from ray_tpu_torch.data import executor
+
+    rng = np.random.default_rng(8)
+    rows = [{"i": i, "x": rng.standard_normal(2048)} for i in range(80)]
+    ds = data.from_items(rows, override_num_blocks=4)
+    assert len(cloudpickle.dumps(ds._plan)) > 1 << 20
+    sizes = []
+    for mod in (actor, remote_function):
+        monkeypatch.setattr(mod, "cloudpickle", _Recorder(sizes))
+    shards = ds.streaming_split(2)
+    got = {}
+    for shard in shards:
+        for b in shard.iter_batches(batch_size=None):
+            got.update(zip(b["i"].tolist(), b["x"]))
+    assert ds.count() == len(rows)  # read tasks sent from this process
+    pool = ds.map_batches(lambda b, big: b, fn_kwargs={"big": rows},
+                          compute="actors", concurrency=1)
+    assert pool.count() == len(rows)
+    monkeypatch.undo()
+    assert sorted(got) == list(range(len(rows)))
+    for r in rows:
+        np.testing.assert_array_equal(got[r["i"]], r["x"])
+    assert sizes and max(sizes) < executor.INLINE_MAX, sorted(sizes)[-3:]

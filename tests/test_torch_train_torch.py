@@ -223,6 +223,131 @@ def test_gpt2_loop_first_loss_matches_jax(fitted):
         assert np.isfinite(rec["losses"]).all()
 
 
+# ---------------------------------------------------------------------------
+# a preprocessing pipeline through streaming_split into the ranks
+
+PIPELINE_ROWS, PIPELINE_BLOCKS, PIPELINE_SEED = 16, 4, 37
+
+
+def _make_rows(batch):
+    """Each row's SEQ + 1 token ids from ``default_rng(37 + id)``: the
+    stand-in for tokenization."""
+    return {"tokens": np.stack([
+        np.random.default_rng(37 + int(i)).integers(0, 512, SEQ + 1)
+        for i in batch["id"]])}
+
+
+def _pipeline(data):
+    return data.range(PIPELINE_ROWS, override_num_blocks=PIPELINE_BLOCKS) \
+        .map_batches(_make_rows).random_shuffle(seed=PIPELINE_SEED)
+
+
+def _pipeline_loop(config):
+    """Every rank's rows and GPT-2 losses over its shard into
+    ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step
+
+    cfg = _gpt2_config()
+    opt = step.default_optimizer(warmup_steps=1)
+    state = step.create_train_state(
+        gpt2, cfg, opt, torch.Generator().manual_seed(0), "cpu")
+    run = step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    rows, losses = [], []
+    for batch in train.get_dataset_shard("train").iter_torch_batches(
+            batch_size=BATCH, drop_last=True, device="cpu"):
+        rows.append(batch["tokens"].tolist())
+        state, m = run(state, batch["tokens"])
+        losses.append(float(m["loss"]))
+    with open(os.path.join(config["out"],
+                           f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump({"rows": rows, "losses": losses}, f)
+    train.report({"steps": len(losses)})
+
+
+def test_a_pipeline_feeds_the_ranks_as_jaxs_streaming_split_deals_it(
+        tmp_path, ray_cluster):
+    import ray_tpu.data as jdata
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step
+
+    result = train.TorchTrainer(
+        _pipeline_loop, train_loop_config={"out": str(tmp_path)},
+        torch_config=train.TorchConfig(backend="gloo", timeout_s=120),
+        scaling_config=ScalingConfig(num_workers=WORKERS, use_gpu=False),
+        run_config=RunConfig(name="pipeline", storage_path=str(tmp_path)),
+        datasets={"train": _pipeline(data)}).fit()
+    assert result.error is None, result.error
+    recs = []
+    for r in range(WORKERS):
+        with open(tmp_path / f"rank{r}.json") as f:
+            recs.append(json.load(f))
+    shards = _pipeline(jdata).streaming_split(WORKERS)
+    cfg = _gpt2_config()
+    opt = step.default_optimizer(warmup_steps=1)
+    run = step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    for rec, shard in zip(recs, shards):
+        want = [b["tokens"].tolist() for b in shard.iter_batches(
+            batch_size=BATCH, drop_last=True)]
+        assert rec["rows"] == want and want
+        state = step.create_train_state(
+            gpt2, cfg, opt, torch.Generator().manual_seed(0), "cpu")
+        own = []
+        for rows in rec["rows"]:
+            state, m = run(state, torch.tensor(rows))
+            own.append(float(m["loss"]))
+        assert rec["losses"] == own
+    assert sum(len(rec["rows"]) for rec in recs) * BATCH <= PIPELINE_ROWS
+
+
+def _fail_once_loop(config):
+    """Reads its shard; the first attempt then fails."""
+    rows = sum(len(b["id"]) for b in
+               train.get_dataset_shard("train").iter_batches(batch_size=4))
+    marker = os.path.join(config["out"], "failed_once")
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("first attempt fails")
+    train.report({"rows": rows})
+
+
+def test_each_attempt_splits_anew_and_ends_its_coordinator(tmp_path):
+    """The controller's second attempt re-splits the dataset through a
+    fresh coordinator and reads every row again; when an attempt ends its
+    coordinator is killed."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.exceptions import ActorDiedError
+    from ray_tpu_torch.train.config import FailureConfig
+
+    trainer = train.TorchTrainer(
+        _fail_once_loop, train_loop_config={"out": str(tmp_path)},
+        torch_config=train.TorchConfig(backend="gloo", timeout_s=120),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=False),
+        run_config=RunConfig(name="attempts", storage_path=str(tmp_path),
+                             failure_config=FailureConfig(max_failures=1)),
+        datasets={"train": data.range(24, override_num_blocks=3)})
+    splits = []
+    factory = trainer._dataset_factory
+
+    def recording(n):
+        shards = factory(n)
+        splits.append(shards)
+        return shards
+
+    trainer._dataset_factory = recording
+    result = trainer.fit()
+    assert result.error is None, result.error
+    assert result.metrics == {"rows": 24}
+    coords = [shards[0]["train"]._bundles._coord for shards in splits]
+    assert len(coords) == 2 and coords[0].actor_id != coords[1].actor_id
+    for coord in coords:
+        with pytest.raises(ActorDiedError):
+            rt.get(coord.get_next.remote(0), timeout=60)
+
+
 def test_torch_trainer_on_the_gpu_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
