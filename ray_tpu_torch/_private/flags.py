@@ -250,9 +250,9 @@ _SPECS = [
     _f("RTPU_GOODPUT_FLUSH_S", 5.0,
        "Min seconds between a GoodputTracker's mid-run pushes to the "
        "node scheduler (goodput_push lane; close() always pushes)"),
-    _f("RTPU_GOODPUT_PEAK_TFLOPS", 197.0,
-       "Per-chip peak TFLOP/s used as the MFU denominator (default: "
-       "v5e bf16 peak, matching bench.py's mfu_vs_v5e_peak)"),
+    _f("RTPU_GOODPUT_PEAK_TFLOPS", 989.0,
+       "Per-device peak TFLOP/s used as the MFU denominator (default: "
+       "the NVIDIA H100 SXM's dense bf16 peak, from its data sheet)"),
     _i("RTPU_GOODPUT_WARMUP", 1,
        "Steps excluded from steady-state throughput/MFU accounting "
        "(step 0 pays compile/dispatch warmup)"),

@@ -51,6 +51,36 @@ def session_root() -> str:
         root = os.path.join("/tmp", SHM_PREFIX + digest)
     return root
 
+
+def live_session_sockets(name: str = "sched.sock") -> list:
+    """The ``session_*/<name>`` sockets under ``session_root()`` that
+    accept a connection, newest first.  A crashed cluster leaves its
+    sockets on disk, so each is probed before it is returned.  The CLI,
+    ``init(address="auto")`` and the job client all find a cluster here."""
+    import glob
+    import socket
+
+    def mtime(path):
+        try:
+            return os.path.getmtime(path)
+        except OSError:  # its session ended between the glob and here
+            return 0.0
+
+    paths = sorted(glob.glob(os.path.join(session_root(), "session_*", name)),
+                   key=mtime, reverse=True)
+    live = []
+    for path in paths:
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.settimeout(1.0)
+        try:
+            s.connect(path)
+            live.append(path)
+        except OSError:
+            continue
+        finally:
+            s.close()
+    return live
+
 # Recovery-plane self-instrumentation: restarts performed by
 # _supervise_store (process-wide singleton, created on first restart so
 # idle nodes register nothing).
@@ -271,8 +301,15 @@ class Node:
             daemon=True)
         self._store_sup.start()
         if head:
-            # Job submission (the JAX package's JobManager) waits for the
-            # port's dashboard; the head has none yet.
+            # Job submission lives on the head (reference: JobManager in the
+            # dashboard head process, dashboard/modules/job/job_manager.py).
+            from ray_tpu_torch._private.job_manager import JobManager
+
+            self.scheduler.job_manager = JobManager(
+                self.gcs, self.gcs_address, self.session_dir)
+            # restored PENDING/RUNNING jobs lost their supervisor with
+            # the previous head process: record the truth
+            self.scheduler.job_manager.reconcile()
             # Persisted-GCS recovery: re-create actors restored as
             # RESTARTING (no-op on a fresh control plane).
             self.scheduler.recover_restored_actors()
@@ -290,10 +327,20 @@ class Node:
         # metrics_snapshot threads the store daemon's incarnation through
         # as the counter-reset generation for cumulative store_* gauges
         self.scheduler._store_server = self.store_server
-        # The port has no dashboard yet: include_dashboard is accepted for
-        # the JAX package's signature and starts nothing.
         self.dashboard = None
         self.dashboard_url = None
+        if head and include_dashboard and not os.environ.get(
+                "RTPU_DISABLE_DASHBOARD"):
+            try:
+                from ray_tpu_torch.dashboard import DashboardHead
+
+                self.dashboard = DashboardHead(self.gcs, self.sched_address)
+                self.dashboard_url = self.dashboard.url
+                if self.dashboard_url:
+                    self.gcs.kv_put("dashboard", b"url",
+                                    self.dashboard_url.encode())
+            except Exception:
+                self.dashboard = None  # aiohttp missing / port exhaustion
 
     def _supervise_store(self):
         """Watch the store daemon process; on unexpected exit, recover.
@@ -448,6 +495,11 @@ class Node:
         exporter = getattr(self, "_event_exporter", None)
         if exporter is not None:
             exporter.shutdown()
+        jm = getattr(self.scheduler, "job_manager", None)
+        if jm is not None:
+            jm.shutdown()
+        if self.dashboard is not None:
+            self.dashboard.shutdown()
         if not self.is_head:
             # Attached (non-head) node leaving gracefully: tell the GCS now
             # instead of making peers wait out the heartbeat timeout.

@@ -377,8 +377,22 @@ class Scheduler:
             max_workers=max_workers,
             worker_env=worker_env,
         )
-        # The JAX package's per-node dashboard agent (physical stats
-        # reporter) waits for the port's dashboard: no reporter here.
+        # Per-node dashboard agent: physical stats reporter (reference:
+        # dashboard/modules/reporter/ sampled by the per-node agent).
+        from ray_tpu_torch.dashboard.agent import NodeStatsReporter
+
+        def _live_workers():
+            with self._lock:
+                rows = [(w.proc.pid,
+                         next((s.name or s.method_name or ""
+                               for s in w.in_flight.values()), ""))
+                        for w in self._pool.workers.values()
+                        if w.alive and w.proc is not None]
+            return rows
+
+        self.reporter = NodeStatsReporter(self.node_id, _live_workers,
+                                          mm_threshold=self._mm_threshold)
+        self.reporter.start()
         # Worker log streaming (reference: _private/log_monitor.py tailing
         # to the driver): this node's monitor forwards new worker-output
         # lines to the driver's sink — directly on the head, via a peer
@@ -1821,6 +1835,7 @@ class Scheduler:
             self._wake.notify_all()
         if self._memory_monitor is not None:
             self._memory_monitor.shutdown()
+        self.reporter.shutdown()
         if self._log_monitor is not None:
             self._log_monitor.stop()
         self._pool.shutdown_all()
@@ -2290,11 +2305,24 @@ class Scheduler:
             return self._list_events(params)
         if method in ("query_timeseries", "slo_status", "tsdb_overview",
                       "tsdb_stats"):
-            # The retained-signal plane (the JAX package's tsdb and its
-            # dashboard sampler) waits for the port's dashboard.
-            raise RuntimeError(
-                f"{method} needs the retained-signal plane, which the "
-                "port's runtime does not have yet")
+            # Retained-signal plane: served by the head's MetricsSampler
+            # (dashboard/head.py), which registers itself as the global
+            # plane in the head scheduler's process.
+            from ray_tpu_torch._private import tsdb as tsdb_mod
+
+            plane = tsdb_mod.global_plane()
+            if plane is None:
+                raise RuntimeError(
+                    "no retained-signal plane on this node (the head's "
+                    "dashboard sampler serves query_timeseries/slo_status;"
+                    " is RTPU_TSDB_SAMPLE_S > 0 and this the head?)")
+            if method == "query_timeseries":
+                return plane.query_timeseries(params)
+            if method == "slo_status":
+                return plane.slo_status()
+            if method == "tsdb_overview":
+                return plane.tsdb_overview(params)
+            return plane.tsdb_stats()
         if method == "store_audit":
             # Per-object store audit (size/seal/age/pins + occupancy and
             # fragmentation summary) straight from the shm daemon.
@@ -2324,9 +2352,7 @@ class Scheduler:
                 float(params.get("since_ts") or 0.0),
                 str(params.get("name_prefix") or ""))
         if method == "node_physical_stats":
-            raise RuntimeError(
-                "node_physical_stats needs the dashboard agent, which the "
-                "port's runtime does not have yet")
+            return self.reporter.latest()
         if method == "metrics_snapshot":
             sources = dict(getattr(self, "_app_metrics", {}))
             try:

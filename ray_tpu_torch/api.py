@@ -8,7 +8,6 @@ python/ray/__init__.py re-exports).
 from __future__ import annotations
 
 import atexit
-import glob
 import inspect
 import os
 import time
@@ -51,11 +50,14 @@ def init(
         res["GPU"] = float(num_gpus)
     address = address or os.environ.get("RAY_TPU_ADDRESS")
     if address is not None and address.startswith("rtpu://"):
-        # the JAX package's remote-driver client (util/client) is not
-        # part of the port yet
-        raise ValueError(
-            "rtpu:// client addresses are not supported by the port's "
-            "runtime; attach with the head's GCS address or 'auto'")
+        # Remote-driver client mode (reference: ray://): no local node at
+        # all — every operation proxies over TCP (util/client).
+        from ray_tpu_torch.util.client import connect_client
+
+        ctx = connect_client(address)
+        worker_mod.set_global_worker(ctx)
+        atexit.register(shutdown)
+        return None
     if address is not None:
         # Attach this process to an existing cluster as a driver: start a
         # local (non-head) node joined through the head's gcs.sock
@@ -89,25 +91,12 @@ def init(
 
 
 def _find_gcs_address() -> str:
-    """Newest LIVE session's gcs.sock (address="auto"): crashed clusters
-    leave stale sockets on disk, so probe before choosing."""
-    import socket as socket_mod
+    """Newest LIVE session's gcs.sock (address="auto")."""
+    from ray_tpu_torch._private.node import live_session_sockets
 
-    from ray_tpu_torch._private.node import session_root
-
-    socks = sorted(glob.glob(os.path.join(session_root(),
-                                          "session_*", "gcs.sock")),
-                   key=os.path.getmtime, reverse=True)
-    for path in socks:
-        s = socket_mod.socket(socket_mod.AF_UNIX, socket_mod.SOCK_STREAM)
-        s.settimeout(1.0)
-        try:
-            s.connect(path)
-            return path
-        except OSError:
-            continue
-        finally:
-            s.close()
+    socks = live_session_sockets("gcs.sock")
+    if socks:
+        return socks[0]
     raise ConnectionError(
         "address='auto' found no live ray_tpu_torch cluster "
         "(no connectable session_*/gcs.sock under the session root)")

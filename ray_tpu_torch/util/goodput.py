@@ -18,11 +18,14 @@ construction (idle is the remainder):
 
 Counted FLOPs per step are the analytic dense-LM ``6 * n_params *
 tokens`` (there is no compiled program's cost analysis), divided by the
-card's peak: 989 TFLOP/s, the H100's dense bf16 rate.
+card's peak, ``RTPU_GOODPUT_PEAK_TFLOPS`` (default 989 TFLOP/s, the
+H100's dense bf16 rate) unless the tracker is given one.
 
-The JAX tracker also pushes its record to its runtime's node scheduler;
-the port has no runtime, so ``report()`` is the reader and the metric
-instruments (``util/metrics.py``) hold the gauges.
+Records ride the runtime's push plane (``goodput_push``, the lane of
+``spans_push``): every ``RTPU_GOODPUT_FLUSH_S`` during the run and at
+``close()``.  The node scheduler banks them, and ``state.get_goodput``,
+the dashboard's ``/api/goodput`` and ``rtpu goodput`` read them.  Outside
+a runtime ``report()`` is the reader.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
 PHASES = ("data", "h2d", "compute", "checkpoint")
 BUCKETS = ("goodput", "compile", "data_stall", "checkpoint", "recovery",
            "idle")
-H100_BF16_PEAK_TFLOPS = 989.0  # dense, NVIDIA's data sheet (SXM)
 WARMUP_STEPS = 1  # steps excluded from steady-state throughput and MFU
 
 # ---------------------------------------------------------------------------
@@ -126,20 +128,29 @@ class _StepTimer:
                                  + time.perf_counter() - t0)
 
 
+def _peak_tflops() -> float:
+    """The MFU denominator: ``RTPU_GOODPUT_PEAK_TFLOPS`` (default the
+    H100's dense bf16 peak, 989 TFLOP/s)."""
+    from ray_tpu_torch._private import flags
+
+    return float(flags.get("RTPU_GOODPUT_PEAK_TFLOPS"))
+
+
 class GoodputTracker:
     """Accumulates step anatomy + run-level goodput/badput for one run,
     driven by one training thread."""
 
     def __init__(self, run: str, tokens_per_step: int = 0,
                  flops_per_step: Optional[float] = None,
-                 peak_tflops: float = H100_BF16_PEAK_TFLOPS,
+                 peak_tflops: Optional[float] = None,
                  warmup_steps: int = WARMUP_STEPS,
                  export_metrics: bool = True):
         self.run = str(run)
         self.tokens_per_step = int(tokens_per_step)
         self.flops_per_step = flops_per_step
         self.flops_source = "analytic" if flops_per_step is not None else None
-        self.peak_tflops = peak_tflops
+        self.peak_tflops = (peak_tflops if peak_tflops is not None
+                            else _peak_tflops())
         self.warmup_steps = int(warmup_steps)
         self._export = export_metrics
         self._t_start = time.perf_counter()
@@ -155,6 +166,10 @@ class GoodputTracker:
         # recent per-step anatomy ring for percentile reporting
         self._recent: "deque[dict]" = deque(maxlen=512)
         self._closed = False
+        from ray_tpu_torch._private import flags
+
+        self._flush_every = max(0.5, float(flags.get("RTPU_GOODPUT_FLUSH_S")))
+        self._last_flush = 0.0
 
     # -- brackets -----------------------------------------------------------
 
@@ -213,6 +228,9 @@ class GoodputTracker:
             for p, dt in st.phases.items():
                 m["phase"].observe(dt, tags={"run": self.run, "phase": p})
             self._export_gauges()
+        now = time.monotonic()
+        if now - self._last_flush >= self._flush_every:
+            self.flush()
 
     def set_flops_per_step(self, flops: float, source: str = "analytic"):
         self.flops_per_step = float(flops)
@@ -311,10 +329,103 @@ class GoodputTracker:
             "mfu": self.mfu(),
         }
 
+    # -- push plane ---------------------------------------------------------
+
+    def flush(self) -> bool:
+        """Push the current record to the node scheduler ("goodput_push",
+        the spans_push/profiles_push lane).  Best-effort; returns whether
+        the record landed (never outside a runtime)."""
+        self._last_flush = time.monotonic()
+        from ray_tpu_torch._private import worker as worker_mod
+
+        ctx = worker_mod.global_worker_or_none()
+        if ctx is None:
+            return False
+        rec = self.report()
+        rec["source"] = (ctx.worker_id.hex()
+                         if getattr(ctx, "worker_id", None) else "driver")
+        rec["rank"] = _env_rank()
+        try:
+            ctx.rpc("goodput_push", {"records": [rec]})
+            return True
+        except Exception:
+            return False
+
     def close(self):
-        """Final gauge export; idempotent."""
+        """Final gauge export + push; idempotent."""
         if self._closed:
             return
         self._closed = True
         if self._export:
-            self._export_gauges()
+            try:
+                self._export_gauges()
+            except Exception:
+                pass
+        self.flush()
+
+
+def _env_rank() -> Optional[int]:
+    # train workers run under a TrainContext; fall back to None elsewhere
+    try:
+        from ray_tpu_torch.train.context import get_context
+
+        return get_context().get_world_rank()
+    except Exception:
+        return None
+
+
+# ---------------------------------------------------------------------------
+# merge helpers shared by state.py, the dashboard, and the CLI (none of
+# which may assume a driver context — same pattern as profiling.py)
+
+def merge_goodput_rows(rows: List[dict]) -> List[dict]:
+    """Dedupe per-(run, source) summary rows across nodes, newest first."""
+    best: Dict[tuple, dict] = {}
+    for r in rows:
+        key = (r.get("run"), r.get("source"))
+        cur = best.get(key)
+        if cur is None or (r.get("ts") or 0) > (cur.get("ts") or 0):
+            best[key] = r
+    return sorted(best.values(), key=lambda r: r.get("ts") or 0,
+                  reverse=True)
+
+
+def merge_records(records: List[dict]) -> Optional[dict]:
+    """Combine one run's per-process records into a run view.
+
+    For the common single-process run the summary IS the record.  For
+    SPMD multi-worker runs the workers proceed in lockstep, so: steps /
+    elapsed / compile are max over ranks, buckets are averaged (each
+    rank attributes its own wall clock), throughput sums (each rank
+    feeds distinct tokens), and mfu averages (it is already per-device).
+    """
+    records = [r for r in records if r]
+    if not records:
+        return None
+    records = merge_goodput_rows(records)
+    n = len(records)
+    buckets = {k: sum((r.get("buckets") or {}).get(k, 0.0)
+                      for r in records) / n for k in BUCKETS}
+    elapsed = max(r.get("elapsed_s") or 0.0 for r in records)
+    tok = [r.get("tokens_per_sec_steady") for r in records
+           if r.get("tokens_per_sec_steady")]
+    mfu = [r.get("mfu") for r in records if r.get("mfu")]
+    primary = min(records, key=lambda r: (r.get("rank") is None,
+                                          r.get("rank") or 0))
+    return {
+        "run": primary.get("run"),
+        "num_sources": n,
+        "records": records,
+        "summary": {
+            "steps": max(r.get("steps") or 0 for r in records),
+            "restarts": sum(r.get("restarts") or 0 for r in records),
+            "elapsed_s": elapsed,
+            "buckets": buckets,
+            "fractions": {k: (v / elapsed if elapsed > 0 else 0.0)
+                          for k, v in buckets.items()},
+            "compile_s": max(r.get("compile_s") or 0.0 for r in records),
+            "tokens_per_sec_steady": sum(tok) if tok else None,
+            "mfu": (sum(mfu) / len(mfu)) if mfu else None,
+            "anatomy": primary.get("anatomy"),
+        },
+    }

@@ -507,10 +507,71 @@ def collected_spans() -> List[Dict[str, Any]]:
         return list(_spans)
 
 
-def export_chrome_trace(path: str) -> int:
-    """Write the collected spans as a chrome trace; returns the event
-    count.  Open in chrome://tracing or Perfetto."""
+def export_chrome_trace(path: str, include_task_events: bool = True) -> int:
+    """Write the collected spans (and, under a runtime, the node's task
+    timeline) as a chrome trace; returns the event count.  Open in
+    chrome://tracing or Perfetto."""
     events = collected_spans()
+    if include_task_events and _runtime_context() is not None:
+        try:
+            from ray_tpu_torch._private.worker import global_worker
+
+            for e in global_worker().rpc("list_task_events", {}):
+                # FORWARDED is a hand-off record on the forwarding node;
+                # the executing node logs the same task again — skip, as
+                # state.events_to_chrome_trace does, or every spilled task
+                # shows up twice.
+                if e.get("state") == "FORWARDED":
+                    continue
+                if e.get("start_ts") and e.get("end_ts"):
+                    events.append({
+                        "name": e["name"], "ph": "X", "pid": 1,
+                        "tid": int.from_bytes(
+                            e["task_id"][:4], "little") % 1_000_000,
+                        "ts": e["start_ts"] * 1e6,
+                        "dur": (e["end_ts"] - e["start_ts"]) * 1e6,
+                        "args": {"state": e["state"]},
+                    })
+        except Exception:
+            pass
     with open(path, "w") as f:
         json.dump({"traceEvents": events}, f)
     return len(events)
+
+
+def export_otel_spans(tracer=None):
+    """Replay collected spans into an OpenTelemetry tracer (import-gated
+    like the reference's exporters, tracing_helper.py): each recorded span
+    becomes an OTel span with its original timestamps and attributes.
+    Returns the number of spans exported.  Without the opentelemetry
+    package use export_chrome_trace() for local inspection."""
+    try:
+        from opentelemetry import trace as otel_trace
+    except ImportError as e:
+        raise ImportError(
+            "opentelemetry is not installed; use export_chrome_trace() "
+            "for local trace inspection") from e
+    if tracer is None:
+        provider = otel_trace.get_tracer_provider()
+        if type(provider).__name__ in ("NoOpTracerProvider",
+                                       "ProxyTracerProvider"):
+            # no SDK configured: spans would be NonRecording and silently
+            # vanish — misreporting them as exported helps nobody
+            raise RuntimeError(
+                "no OpenTelemetry TracerProvider is configured; call "
+                "opentelemetry.trace.set_tracer_provider(...) first or "
+                "pass an explicit tracer")
+        tracer = otel_trace.get_tracer("ray_tpu_torch")
+    spans = collected_spans()
+    for s in spans:
+        start_ns = int(s["ts"] * 1e3)  # recorded in microseconds
+        end_ns = int((s["ts"] + s["dur"]) * 1e3)
+        span = tracer.start_span(s["name"], start_time=start_ns)
+        for k, v in (s.get("args") or {}).items():
+            # OTel silently drops non-primitive values (set_attribute
+            # never raises): sanitize up front so nothing vanishes
+            span.set_attribute(
+                str(k), v if isinstance(v, (bool, str, int, float))
+                else repr(v))
+        span.end(end_time=end_ns)
+    return len(spans)

@@ -159,3 +159,53 @@ def test_metric_families_are_the_jax_trackers():
     assert len(rows) == 9
     assert rows["train_step_s"]["kind"] == "histogram"
     assert rows["train_mfu"]["kind"] == "gauge"
+
+
+def _steps_on_a_clock(mod, clock, **kw):
+    """Four steps through ``mod``'s tracker on a hand-driven clock: the
+    same wall times whatever the machine."""
+    clock[0] = 100.0
+    gp = mod.GoodputTracker(run="gp-flag", tokens_per_step=256,
+                            flops_per_step=3.0e12, warmup_steps=1,
+                            export_metrics=False, **kw)
+    for i in range(4):
+        with gp.step() as st:
+            with st.phase("data"):
+                clock[0] += 0.001
+            with st.phase("compute"):
+                clock[0] += 0.01 * (i + 1)
+    rep = gp.report()
+    gp.close()
+    return rep
+
+
+@pytest.mark.parametrize("peak", ["121", "989.5", "1979"])
+def test_the_peak_flag_sets_both_trackers_mfu(peak, monkeypatch):
+    """``RTPU_GOODPUT_PEAK_TFLOPS`` is the MFU denominator of both
+    packages' trackers: the same steps give the same peak and MFU."""
+    from ray_tpu.util import goodput as jgoodput
+
+    monkeypatch.setenv("RTPU_GOODPUT_PEAK_TFLOPS", peak)
+    clock = [0.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    ours = _steps_on_a_clock(goodput, clock)
+    theirs = _steps_on_a_clock(jgoodput, clock)
+    assert ours["peak_tflops"] == theirs["peak_tflops"] == float(peak)
+    assert ours["mfu"] == theirs["mfu"]
+    assert ours["mfu"] == pytest.approx(
+        3.0e12 * 3 / (0.001 * 3 + 0.01 * (2 + 3 + 4)) / 1e12 / float(peak))
+    # an explicit peak still wins over the flag
+    assert _steps_on_a_clock(goodput, clock, peak_tflops=2.0)[
+        "peak_tflops"] == 2.0
+
+
+def test_the_peak_defaults_to_the_h100s(monkeypatch):
+    from ray_tpu_torch._private import flags
+
+    monkeypatch.delenv("RTPU_GOODPUT_PEAK_TFLOPS", raising=False)
+    assert flags.get("RTPU_GOODPUT_PEAK_TFLOPS") == 989.0
+    clock = [0.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    rep = _steps_on_a_clock(goodput, clock)
+    assert rep["peak_tflops"] == 989.0
+    assert rep["mfu"] == rep["model_tflops_per_s"] / 989.0
