@@ -130,7 +130,7 @@ Phases, each fatal on failure:
      second attempt from the step-8 checkpoint with the same loss there,
      the killed process gone, no CUDA context in the trial's process;
      seconds to a new worker, checkpoint GB/s, steps lost; (c) PBT over 2
-     trials at 4 layers, 18 steps: the weak trial exploits and its first
+     trials at 2 layers, 12 steps: the weak trial exploits and its first
      loss after the restore equals the donor's at that step;
  10c. the actor plane on the card (``run_actor_plane``): two actors at
      ``num_gpus`` 0.5, each holding phase 9's GPT-2 124M from one seed:
@@ -165,7 +165,20 @@ Phases, each fatal on failure:
      processes not this one, each batch equal to this process's run of
      the pipeline in order (sha256), the first loss equal to this
      process's step, 12 / 12 / 12 launches a step; tokens/s against phase
-     10's, ``next(batch)`` p50, the in-process run's stats per op;
+     10's, ``next(batch)`` p50, the in-process run's stats per op; (c)
+     (b)'s pipeline written with ``write_tfrecords`` (one file a block,
+     TFRecords encoded without tensorflow), registered with the data
+     service as ``read_tfrecords`` -> ``map_batches``, and a
+     ``TorchTrainer`` worker attached to it training phase 9's step over
+     two epochs of 11 steps: each epoch's rows the pipeline's as a
+     multiset (sha256 per row), the second epoch from the first-epoch
+     cache (the job's ``data_jobs`` snapshot), the first loss equal to
+     this process's step on the worker's first batch, 12 / 12 / 12
+     launches a step, the coordinator and the service workers in
+     processes other than this one with no CUDA context; the write's and
+     the read's MB/s, the fit's and the worker's seconds, tokens/s per
+     epoch against phase 10's, ``next(batch)`` p50 per epoch, the job's
+     snapshot;
  10e. the observability plane (``run_observability``): the port's
      ``scripts/obs_smoke.py`` in a child process of its own, so that a
      fresh cluster starts with the phase's SLO rules, sampler cadence and
@@ -2188,12 +2201,13 @@ def run_frontends(report):
 # projected onto the unprofiled cell's rate.
 SERVE_BENCH_SEED = 7
 SERVE_PROFILE_S = 2.0
-# The reference's ladder with its top rung cut from 1024 requests to 512
+# The reference's ladder with its top rung cut from 1024 requests to 256
 # (concurrency and width kept): at 1024 the phase took 98.8-199.2 s with
-# the host's speed against its 150 s budget (NVIDIA H100 80GB HBM3).  Its
+# the host's speed against its 150 s budget, and at 512 the whole script
+# ran past its 1200 s limit on a slow host (NVIDIA H100 80GB HBM3).  Its
 # middle rung (16, 256) is left out for the script's time: every gate
 # reads the top rung, which stays.
-SERVE_LADDER = ((4, 128), (32, 512))
+SERVE_LADDER = ((4, 128), (32, 256))
 # the profiled rerun of the top prefix-aware cell runs 1/4 of its requests
 SERVE_PROFILED_SHARE = 4
 
@@ -3583,13 +3597,15 @@ def run_torch_trainer(report):
 # so the weak trials reach each rung after its history holds the strong
 # ones' (the first arrival at a rung always continues).  (b) a trainer
 # inside a trial, its worker killed once at step TUNE_KILL_AT.  (c) PBT at
-# GPT-2's width cut to TUNE_PBT_LAYERS layers, for time.
+# GPT-2's width cut to TUNE_PBT_LAYERS layers and TUNE_PBT_STEPS steps, for
+# the script's time (its 1200 s limit): the weak trial can exploit at steps
+# 4 and 8.
 TUNE_SEED = 23
 TUNE_IDS = 512
 TUNE_ASHA_LRS = [6e-4, 1e-4, 1e-5, 1e-6]
 TUNE_ASHA = {"max_t": 24, "grace_period": 6, "reduction_factor": 2}
 TUNE_TRAINER_STEPS, TUNE_CKPT_EVERY, TUNE_KILL_AT = 16, 4, 10
-TUNE_PBT_LAYERS, TUNE_PBT_STEPS, TUNE_PBT_INTERVAL = 4, 18, 6
+TUNE_PBT_LAYERS, TUNE_PBT_STEPS, TUNE_PBT_INTERVAL = 2, 12, 4
 TUNE_PBT_LRS = [1e-6, 6e-4]
 TUNE_START_S = 120  # a trial's wait for its peer at the start barrier
 
@@ -3790,7 +3806,7 @@ def run_tune(report):
     the killed process gone, no CUDA context in the trial's process, 12
     launches a step in the worker; seconds to a new worker, checkpoint
     save GB/s, steps lost.  (c) ``PopulationBasedTraining(
-    perturbation_interval=6)`` over 2 trials at 4 layers, 18 steps, a
+    perturbation_interval=4)`` over 2 trials at 2 layers, 12 steps, a
     checkpoint at each interval: the weak trial exploits, and its first
     loss after the restore equals the donor's at that step.  Every process
     that held the card has exited when the phase ends.  Returns the
@@ -3996,7 +4012,7 @@ def run_tune(report):
             raise SystemExit(f"tune (b): the worker did not launch each "
                              f"kernel {cfg.n_layers} times a step on cuda:0")
 
-        # (c) PBT across processes, at 4 layers
+        # (c) PBT across processes, at TUNE_PBT_LAYERS layers
         pbt_cfg = dataclasses.replace(cfg, n_layers=TUNE_PBT_LAYERS)
         barrier = os.path.join(tmp, "pbt_barrier")
         os.makedirs(barrier)
@@ -4762,6 +4778,287 @@ def run_data_trainer(report, res):
     return m["launches"], m["pid"]
 
 
+# (c): the data service feeding a trainer from files.  (b)'s pipeline is
+# written as TFRecords (one file a block), read back by the service's
+# workers through ``read_tfrecords`` and one ``map_batches`` stage, and a
+# TorchTrainer worker attached to the job's one split trains two epochs
+# over it.
+DATA_SERVICE_JOB = "data-smoke-tokens"
+DATA_SERVICE_EPOCHS = 2
+DATA_SERVICE_MIN_FILES = 4
+DATA_SERVICE_TIMEOUT_S = 60  # the job's snapshot after the fit
+
+
+def data_service_tokens(batch):
+    """(c)'s stage: the token column as an (n, SEQ + 1) int64 array."""
+    import numpy as np
+
+    tokens = np.stack([np.asarray(t, dtype=np.int64)
+                       for t in batch["tokens"]])
+    if tokens.shape[1:] != (SEQ + 1,):
+        raise ValueError(f"token rows of shape {tokens.shape}")
+    return {"tokens": tokens}
+
+
+def row_sha256(rows) -> list:
+    """The sha256 of each int64 row of ``rows``."""
+    import hashlib
+
+    import numpy as np
+
+    rows = np.ascontiguousarray(np.asarray(rows, dtype=np.int64))
+    return [hashlib.sha256(r.tobytes()).hexdigest() for r in rows]
+
+
+def service_trainer_loop(config):
+    """(c)'s train function, in the trainer's worker: attaches to the data
+    service's job and trains the GPT-2 124M step over ``epochs`` passes of
+    its split (each ``iter_torch_batches`` pass over the attached
+    iterator is one epoch of the service), ``steps`` a pass.  Reports the
+    losses, each ``next(batch)`` wait, each epoch's timed device ms (the
+    steps after ``warmup``), the sha256 of every row consumed by epoch, the
+    first batch, when the loop started, and the worker's launches over the
+    loop."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.data import service
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+
+    started = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(train.get_context().get_device())
+    cfg = config["cfg"]
+    opt = train_step.default_optimizer(warmup_steps=1)
+    gen = torch.Generator(device=device).manual_seed(config["seed"])
+    state = train_step.create_train_state(gpt2, cfg, opt, gen, device=device)
+    step = train_step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    it = service.attach(config["job"], 0)
+    zero_launch_counts()
+    epochs = []
+    for _ in range(config["epochs"]):
+        batches = iter(it.iter_torch_batches(
+            batch_size=config["batch"], drop_last=True, device=device))
+        timed = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        kept, waits, losses = [], [], []
+        for i in range(config["steps"]):
+            if i == config["warmup"]:
+                torch.cuda.synchronize(device)
+                timed[0].record()
+            t0 = time.perf_counter()
+            batch = next(batches)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            kept.append(batch["tokens"])
+            state, m = step(state, batch["tokens"].long())
+            losses.append(m["loss"])
+        timed[1].record()
+        torch.cuda.synchronize(device)
+        exhausted = next(batches, None) is None
+        rows = torch.cat(kept).cpu().numpy()
+        timed_ms = timed[0].elapsed_time(timed[1])
+        epochs.append({
+            "rows_sha256": row_sha256(rows), "rows": rows.shape[0],
+            "exhausted": exhausted, "wait_ms": waits,
+            "losses": [float(x) for x in losses], "timed_ms": timed_ms,
+            "tokens_per_s": (config["steps"] - config["warmup"])
+            * config["batch"] * (rows.shape[1] - 1) / (timed_ms / 1e3)})
+        if len(epochs) == 1:
+            first_batch = kept[0].cpu().numpy()
+    train.report({
+        "epochs": epochs, "first_batch": first_batch,
+        "started": started, "launches": launch_counts(),
+        "device": torch.cuda.get_device_name(device), "pid": os.getpid()})
+
+
+def service_processes(inst, job):
+    """In the data service's coordinator: (pid, whether the process made
+    a CUDA context) of the coordinator and of each of ``job``'s workers."""
+    import ray_tpu_torch as rt
+
+    out = {"coordinator": process_cuda(inst)}
+    for wid, w in list(inst._jobs[job].workers.items()):
+        out[wid] = rt.get(w.handle.__rtpu_apply__.remote(process_cuda),
+                          timeout=60)
+    return out
+
+
+def dir_files(path: str) -> list:
+    return sorted(os.path.join(path, f) for f in os.listdir(path))
+
+
+def run_data_service(report, res):
+    """(c), on ``run_data``'s runtime: ``data_pipeline`` materialized and
+    written with ``write_tfrecords`` (one file a block, at least
+    DATA_SERVICE_MIN_FILES), read back whole (the write's and the read's
+    MB/s over the files' bytes); ``read_tfrecords`` ->
+    ``map_batches(data_service_tokens)`` registered with the data service
+    at one split, and ``service_trainer_loop`` in a ``TorchTrainer``
+    worker on the card attached to it for DATA_SERVICE_EPOCHS epochs.
+    Fails unless each epoch's rows are the pipeline's as a multiset
+    (sha256 a row) and run out, the job's ``data_jobs`` snapshot counts
+    both epochs' rows with the second served from the first-epoch cache
+    (hits at least the chunks, no miss), the worker's first loss equals
+    this process's step on its first batch within STEP_LOSS_TOL, every
+    kernel launched 12 times a step, and the coordinator and the job's
+    workers run in processes other than this one with no CUDA context.
+    Returns the worker's launches and its pid."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch._private import data_service as svc_mod
+    from ray_tpu_torch.data import service
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train_step
+    from ray_tpu_torch.util import state as state_api
+
+    cfg = gpt2.GPT2Config(remat=False, loss_chunk=0)  # run_trainer's
+    steps = DATA_ROWS // BATCH
+    os.makedirs(OUT_DIR, exist_ok=True)
+    files_dir = tempfile.mkdtemp(dir=OUT_DIR)
+    storage = tempfile.mkdtemp(dir=OUT_DIR)
+    try:
+        pipeline = data_pipeline(data, cfg.vocab_size).materialize()
+        own_rows = np.concatenate([b["tokens"] for b in pipeline.iter_batches(
+            batch_size=None)])
+        t0 = time.monotonic()
+        pipeline.write_tfrecords(files_dir)
+        write_s = time.monotonic() - t0
+        files = dir_files(files_dir)
+        file_bytes = sum(os.path.getsize(f) for f in files)
+        t0 = time.monotonic()
+        read_rows = sum(len(b["tokens"]) for b in data.read_tfrecords(
+            files_dir).iter_batches(batch_size=None))
+        read_s = time.monotonic() - t0
+        ds = data.read_tfrecords(files_dir).map_batches(data_service_tokens)
+        info = service.register(DATA_SERVICE_JOB, ds, num_splits=1)
+        config = {"cfg": cfg, "seed": DATA_SEED, "batch": BATCH,
+                  "warmup": DATA_WARMUP, "steps": steps,
+                  "epochs": DATA_SERVICE_EPOCHS, "job": DATA_SERVICE_JOB}
+        t0 = time.monotonic()
+        fit_start = time.time()
+        try:
+            result = train.TorchTrainer(
+                service_trainer_loop, train_loop_config=config,
+                torch_config=train.TorchConfig(),
+                scaling_config=train.ScalingConfig(num_workers=1,
+                                                   use_gpu=True),
+                run_config=train.RunConfig(name="data_service_trainer",
+                                           storage_path=storage)).fit()
+            fit_s = time.monotonic() - t0
+            if result.error is not None:
+                raise SystemExit(f"data (c): the TorchTrainer loop failed: "
+                                 f"{result.error}")
+            want_rows = DATA_SERVICE_EPOCHS * DATA_ROWS
+            deadline = time.monotonic() + DATA_SERVICE_TIMEOUT_S
+            while True:
+                snap = next((j for j in state_api.list_data_jobs()
+                             if j.get("name") == DATA_SERVICE_JOB), None)
+                if (snap and snap["rows_total"] >= want_rows) or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            coord = rt.get_actor(svc_mod.COORDINATOR_NAME)
+            procs = rt.get(coord.__rtpu_apply__.remote(
+                service_processes, DATA_SERVICE_JOB), timeout=120)
+        finally:
+            service.unregister(DATA_SERVICE_JOB)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        shutil.rmtree(files_dir, ignore_errors=True)
+    m = result.metrics
+
+    # this process's own first step on the same parameters and the
+    # worker's first batch
+    gen = torch.Generator(device="cuda").manual_seed(DATA_SEED)
+    opt = train_step.default_optimizer(warmup_steps=1)
+    st = train_step.create_train_state(gpt2, cfg, opt, gen, device="cuda")
+    step = train_step.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    _, first = step(st, torch.from_numpy(m["first_batch"]).cuda().long())
+    own_loss = first["loss"].item()
+    del st, step, first
+    torch.cuda.empty_cache()
+
+    own_sha = Counter(row_sha256(own_rows))
+    epochs = m["epochs"]
+    ref_rate = report["torch_trainer"]["tokens_per_s"]
+    mb = file_bytes / 1e6
+    per_epoch = [{
+        "rows": e["rows"], "exhausted": e["exhausted"],
+        "tokens_per_s": e["tokens_per_s"],
+        "tokens_per_s_ratio": e["tokens_per_s"] / ref_rate,
+        "wait_ms_p50": float(np.percentile(e["wait_ms"], 50)),
+        "first_wait_ms": e["wait_ms"][0],
+        "rows_equal_pipeline": Counter(e["rows_sha256"]) == own_sha,
+        "first_loss": e["losses"][0], "last_loss": e["losses"][-1]}
+        for e in epochs]
+    want = {k: cfg.n_layers * steps * DATA_SERVICE_EPOCHS
+            for k in m["launches"]}
+    res["c"] = {
+        "files": len(files), "file_bytes": file_bytes, "write_s": write_s,
+        "write_mb_s": mb / write_s, "read_s": read_s, "read_rows": read_rows,
+        "read_mb_s": mb / read_s, "register": info, "fit_s": fit_s,
+        "worker_ready_s": m["started"] - fit_start, "epochs": per_epoch,
+        "own_first_loss": own_loss, "launches": m["launches"],
+        "processes": procs, "snapshot": snap, "pid": m["pid"]}
+    print(f"data (c): (b)'s pipeline written with write_tfrecords to "
+          f"{len(files)} files, {file_bytes} bytes, in {write_s:.3f} s "
+          f"({mb / write_s:.2f} MB/s); read_tfrecords read {read_rows} rows "
+          f"in {read_s:.3f} s ({mb / read_s:.2f} MB/s); the data service's "
+          f"job {info}; TorchTrainer worker (pid {m['pid']}, loop started "
+          f"{m['started'] - fit_start:.2f} s after fit began; {fit_s:.1f} s "
+          f"for fit) over {DATA_SERVICE_EPOCHS} epochs of {steps} steps of "
+          f"GPT-2 124M: first loss {epochs[0]['losses'][0]:.6f} against "
+          f"this process's step on the worker's first batch {own_loss:.6f} "
+          f"(diff {abs(epochs[0]['losses'][0] - own_loss):.3e}, tol "
+          f"{STEP_LOSS_TOL:.0e}); worker launches {m['launches']}", flush=True)
+    for i, e in enumerate(per_epoch):
+        print(f"data (c) epoch {i}: {e['rows']} rows, equal to the "
+              f"pipeline's as a multiset: {e['rows_equal_pipeline']}; "
+              f"{e['tokens_per_s']:.1f} tokens/s over steps "
+              f"{DATA_WARMUP}-{steps - 1} = {e['tokens_per_s_ratio']:.4f} of "
+              f"run_torch_trainer's {ref_rate:.1f}; next(batch) wait p50 "
+              f"{e['wait_ms_p50']:.4f} ms, the first "
+              f"{e['first_wait_ms']:.2f} ms; loss {e['first_loss']:.6f} -> "
+              f"{e['last_loss']:.6f}", flush=True)
+    print(f"data (c): the service's processes (pid, CUDA context) {procs}, "
+          f"this process {os.getpid()}; the job's snapshot "
+          f"{json.dumps(snap, sort_keys=True)}", flush=True)
+    if len(files) < DATA_SERVICE_MIN_FILES or read_rows != DATA_ROWS:
+        raise SystemExit(f"data (c): {len(files)} files, {read_rows} rows "
+                         f"read back")
+    if not all(e["rows_equal_pipeline"] and e["exhausted"]
+               and e["rows"] == DATA_ROWS for e in per_epoch):
+        raise SystemExit("data (c): an epoch's rows are not the pipeline's")
+    if not (snap and snap["rows_total"] == DATA_SERVICE_EPOCHS * DATA_ROWS
+            and snap["cache"]["hits"] >= snap["chunks"]
+            and snap["cache"]["misses"] == 0):
+        raise SystemExit(f"data (c): the second epoch was not served from "
+                         f"the first-epoch cache: {snap}")
+    if abs(epochs[0]["losses"][0] - own_loss) > STEP_LOSS_TOL:
+        raise SystemExit("data (c): the worker's first loss disagrees with "
+                         "this process's step on the same batch")
+    if not all(map(math.isfinite, [x for e in epochs
+                                   for x in e["losses"]])):
+        raise SystemExit("data (c): a loss is not finite")
+    if m["launches"] != want:
+        raise SystemExit(f"data (c): worker launches {m['launches']}, want "
+                         f"{want}")
+    pids = [p for p, _ in procs.values()]
+    if (len(procs) < 2 or os.getpid() in pids + [m["pid"]]
+            or any(cuda for _, cuda in procs.values())):
+        raise SystemExit(f"data (c): the service's processes {procs} (pid, "
+                         f"CUDA context), this process {os.getpid()}")
+    return m["launches"], m["pid"]
+
+
 def run_data(report):
     """The data plane on the card (after ``run_actor_plane``), on the
     port's runtime.  (a) ``build_llm_processor`` with two engine actors at
@@ -4778,9 +5075,12 @@ def run_data(report):
     process's run of the pipeline in order, the first loss equal to this
     process's step within STEP_LOSS_TOL, 12 / 12 / 12 launches a step;
     tokens/s against ``run_torch_trainer``'s, ``next(batch)`` p50, and the
-    in-process run's stats.  Every process that held the card has exited
-    when the phase ends.  Returns the kernels' launches on the phase's
-    paths."""
+    in-process run's stats.  (c) ``run_data_service``: (b)'s pipeline
+    written as TFRecords, served by the data service to a ``TorchTrainer``
+    worker over two epochs: the rows, the cache, the first loss, the
+    launches and the service's processes.
+    Every process that held the card has exited when the phase ends.
+    Returns the kernels' launches on the phase's paths."""
     import ray_tpu_torch as rt
 
     t_phase = time.monotonic()
@@ -4793,6 +5093,8 @@ def run_data(report):
         res["a"]["exit_wait_s"] = wait_exited(pids, "data (a)")
         launches, worker_pid = run_data_trainer(report, res)
         card_pids.add(worker_pid)
+        service_launches, service_pid = run_data_service(report, res)
+        card_pids.add(service_pid)
     finally:
         rt.shutdown()
     res["exit_wait_s"] = wait_exited(card_pids, "data")
@@ -4804,7 +5106,8 @@ def run_data(report):
     if differ:
         raise SystemExit(f"data (a): {differ} rows' ids differ from this "
                          f"process's engine")
-    launches = dict(launches, flash_fwd=launches["flash_fwd"] + fwd_a)
+    launches = {k: v + service_launches[k] for k, v in launches.items()}
+    launches["flash_fwd"] += fwd_a
     res["launches"] = launches
     res["phase_s"] = time.monotonic() - t_phase
     report["data"] = res

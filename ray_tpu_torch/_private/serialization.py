@@ -88,9 +88,11 @@ def _as_host_array(value):
 def _as_tensor(value):
     """A dense, contiguous torch tensor for tensor values, else None.
     Looks torch up in ``sys.modules``: a value can only be a tensor in a
-    process that has imported torch."""
+    process that has imported torch.  While another thread is importing
+    it, the module is there without ``Tensor`` yet, and no tensor exists."""
     torch = sys.modules.get("torch")
-    if torch is None or not isinstance(value, torch.Tensor):
+    tensor_t = getattr(torch, "Tensor", None)
+    if tensor_t is None or not isinstance(value, tensor_t):
         return None
     if value.layout != torch.strided or value.is_quantized:
         return None

@@ -7,11 +7,16 @@ keeps its trailing shape as it is, where the JAX package stores a
 fixed-size list with the shape in the field's metadata.  The batch format
 is "numpy"; "pandas" and "pyarrow" raise.  A null (a row without a
 column, an outer join's missing side) is None in an object column, where
-the JAX package holds an Arrow null.
+the JAX package holds an Arrow null, and a column of bytes is an object
+column (a fixed-width bytes array would drop trailing zero bytes).
+``from_arrow`` and ``to_arrow`` convert a block from and to a pyarrow
+table, the layout the JAX package's blocks have, for the file readers and
+writes that go through pyarrow; they import it when called.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
@@ -79,11 +84,12 @@ def _as_column(v: Any) -> np.ndarray:
     """A column from a batch's value.  An array stays as it is; a list of
     equal-shape arrays stacks into one multi-dim column; a list holding
     Python lists (Arrow's list column) or ragged arrays becomes an object
-    column of its elements as they are."""
+    column of its elements as they are, and so does a list holding bytes."""
     if isinstance(v, np.ndarray):
         return v
     if isinstance(v, (list, tuple)) and v:
-        nested = any(isinstance(x, (list, tuple)) for x in v)
+        nested = any(isinstance(x, (list, tuple, bytes, bytearray))
+                     for x in v)
         arrays = all(isinstance(x, np.ndarray) for x in v)
         if arrays and len({(x.shape, x.dtype) for x in v}) == 1:
             return np.stack(v)
@@ -127,6 +133,67 @@ def rows_of(block: Block) -> Iterator[Dict[str, Any]]:
     cols = {k: v if v.ndim > 1 else v.tolist() for k, v in block.items()}
     for i in range(num_rows(block)):
         yield {k: col[i] for k, col in cols.items()}
+
+
+def to_pylist(block: Block) -> List[Dict[str, Any]]:
+    """Each row as Arrow's ``Table.to_pylist`` gives the JAX package's
+    block: Python values, a multi-dim column's value as the flat list of
+    its trailing elements (a fixed-size list)."""
+    cols = {k: (v.reshape(len(v), -1).tolist() if v.ndim > 1
+                else v.tolist()) for k, v in block.items()}
+    return [{k: col[i] for k, col in cols.items()}
+            for i in range(num_rows(block))]
+
+
+def from_arrow(table) -> Block:
+    """A block from a pyarrow table: numeric columns without nulls as
+    their numpy arrays, a fixed-size list carrying the JAX package's
+    ``np_shape`` field metadata as the multi-dim array it records, and any
+    other column as ``from_batch`` makes it from the column's Python
+    values (strings, bytes, lists, None for a null)."""
+    import pyarrow as pa
+
+    out: Block = {}
+    for field, col in zip(table.schema, table.columns):
+        meta = field.metadata or {}
+        if (b"np_shape" in meta and pa.types.is_fixed_size_list(field.type)
+                and col.null_count == 0):
+            shape = json.loads(meta[b"np_shape"].decode())
+            flat = col.combine_chunks().flatten().to_numpy(
+                zero_copy_only=False)
+            out[field.name] = flat.reshape([len(col)] + shape)
+            continue
+        if col.null_count == 0 and (pa.types.is_integer(field.type)
+                                    or pa.types.is_floating(field.type)
+                                    or pa.types.is_boolean(field.type)):
+            out[field.name] = col.to_numpy()
+            continue
+        values = col.to_pylist()
+        out[field.name] = (_as_column(values) if values
+                           else np.asarray(values, dtype=object))
+    return out
+
+
+def to_arrow(block: Block):
+    """A pyarrow table from a block, laid out as the JAX package's
+    ``from_batch`` lays out a dict of columns: a multi-dim column as a
+    fixed-size list with its trailing shape in the field's ``np_shape``
+    metadata, every other column as ``pa.array`` of it."""
+    import pyarrow as pa
+
+    arrays, fields = [], []
+    for k, v in block.items():
+        if v.ndim > 1:
+            inner = int(np.prod(v.shape[1:]))
+            flat = pa.array(np.ascontiguousarray(v).reshape(-1))
+            arr = pa.FixedSizeListArray.from_arrays(flat, inner)
+            fields.append(pa.field(k, arr.type, metadata={
+                b"np_shape": json.dumps(list(v.shape[1:])).encode()}))
+        else:
+            arr = pa.array(v.tolist() if v.dtype == object else v)
+            fields.append(pa.field(k, arr.type))
+        arrays.append(arr)
+    return pa.Table.from_arrays(arrays, schema=pa.schema(fields))
 
 
 def _nulls(n: int) -> np.ndarray:

@@ -10,10 +10,10 @@ coordinator actor (``data/split.py``).
 
 Blocks are ``{column: ndarray}`` (``data/block.py``), so ``schema()`` is
 ``{column: (dtype, trailing shape)}`` where the JAX package returns a
-pyarrow schema.  ``iter_jax_batches``, the TensorFlow paths, ``to_pandas``
-and ``to_arrow`` raise: the port imports neither JAX nor pandas, pyarrow
-or tensorflow.  The ``write_*`` methods raise: the file formats come with
-the data package's sources in a later slice.
+pyarrow schema.  ``iter_jax_batches`` and the TensorFlow paths raise: the
+port imports neither JAX nor tensorflow.  ``to_pandas`` and ``to_arrow``
+import pyarrow when called, and so do the Parquet and CSV writes; the
+``write_*`` methods write one file a block (``datasource.make_write_fn``).
 """
 
 from __future__ import annotations
@@ -87,14 +87,6 @@ def _row_transform(kind: str, fn: Callable) -> Callable:
             yield block_mod.from_rows(out)
 
     return transform
-
-
-def _no(what: str, why: str):
-    raise NotImplementedError(f"{what}: {why}")
-
-
-_LATER = ("the port's file formats and connectors come in a later slice of "
-          "the data package")
 
 
 class Dataset:
@@ -331,12 +323,15 @@ class Dataset:
             print(row)
 
     def to_pandas(self):
-        _no("to_pandas", "the port's blocks are numpy and it imports no "
-            "pandas; use iter_batches or take_batch")
+        table = self.to_arrow()
+        return table.to_pandas() if table is not None else None
 
     def to_arrow(self):
-        _no("to_arrow", "the port's blocks are numpy and it imports no "
-            "pyarrow; use iter_batches or take_batch")
+        """The rows as one pyarrow table (``block.to_arrow``), None for no
+        block."""
+        blocks = [rt.get(ref) for ref, _ in self.iter_bundles()]
+        return (block_mod.to_arrow(block_mod.concat(blocks)) if blocks
+                else None)
 
     def stats(self) -> str:
         if self._last_stats is None:
@@ -386,20 +381,28 @@ class Dataset:
 
     # ------------------------- writes ------------------------------------
 
+    def _write(self, path: str, fmt: str, **kw) -> None:
+        from ray_tpu_torch.data.datasource import make_write_fn
+
+        ds = self._one_to_one(f"Write[{fmt}]",
+                              block_fn=make_write_fn(path, fmt, kw))
+        for _ in ds.iter_bundles():
+            pass
+
     def write_parquet(self, path: str, **kw) -> None:
-        _no("write_parquet", _LATER)
+        self._write(path, "parquet", **kw)
 
     def write_csv(self, path: str, **kw) -> None:
-        _no("write_csv", _LATER)
+        self._write(path, "csv", **kw)
 
     def write_tfrecords(self, path: str, **kw) -> None:
-        _no("write_tfrecords", _LATER)
+        self._write(path, "tfrecords", **kw)
 
     def write_json(self, path: str, **kw) -> None:
-        _no("write_json", _LATER)
+        self._write(path, "json", **kw)
 
     def write_avro(self, path: str, **kw) -> None:
-        _no("write_avro", _LATER)
+        self._write(path, "avro", **kw)
 
     def __repr__(self):
         return f"Dataset({self._plan!r})"

@@ -6,13 +6,15 @@ of ``tests/test_data_extras.py``, is written once as a function of the
 package under test.  It runs under the JAX package's session cluster
 (``ray_cluster``) and under the port's runtime, started by a module
 fixture in the same process, makes its JAX test's assertions in both, and
-returns what it read; the two results must be equal.  Where JAX's row
+returns what it read; the two results must be equal (the file readers and
+writes are ``tests/test_torch_data_sources.py``'s).  Where JAX's row
 order belongs to the host (groups, join output), the rows are sorted
 first, as the JAX tests do.  A seeded ``random_shuffle`` gives JAX's rows
 in JAX's order; ``std`` is Arrow's (ddof 0); nulls are None.  Each case
 runs on a thread bounded by ``TIMEOUT`` s.
 """
 
+import ast
 import concurrent.futures
 import sys
 import threading
@@ -30,13 +32,20 @@ cloudpickle.register_pickle_by_value(sys.modules[__name__])
 TIMEOUT = 120
 
 # the names of the JAX package's data/__init__.py that wait for the data
-# package's sources (file readers, connectors, the data service)
-LATER = {"from_arrow", "from_huggingface", "from_pandas", "from_tf",
-         "from_torch", "read_audio", "read_avro", "read_binary_files",
-         "read_clickhouse", "read_csv", "read_delta_sharing", "read_iceberg",
-         "read_images", "read_json", "read_mongo", "read_numpy",
-         "read_parquet", "read_sql", "read_text", "read_tfrecords",
-         "read_videos", "read_webdataset", "service"}
+# package's connectors
+LATER = {"read_audio", "read_delta_sharing", "read_iceberg", "read_mongo",
+         "read_videos"}
+
+# the functions of the data package that may import pyarrow, pandas or PIL
+# (the readers and writes of the formats that need them), by file; nothing
+# in the package imports tensorflow
+LIBRARY_IMPORTS = {
+    "__init__.py": {"from_pandas"},
+    "block.py": {"from_arrow", "to_arrow"},
+    "datasource.py": {"parquet_tasks.read_file", "csv_tasks.read_file",
+                      "json_tasks.read_file", "image_tasks",
+                      "image_tasks.read_group", "make_write_fn.write_blocks"},
+}
 
 # the executor's metric families: "data_op_" + each suffix
 METRIC_SUFFIXES = ("rows_total", "output_bytes_total", "tasks_total",
@@ -94,21 +103,47 @@ def test_exports_cover_jax_less_the_sources():
         assert getattr(ray_tpu_torch.data, name) is not None, name
 
 
+def _imports_by_function(tree):
+    """(dotted name of the enclosing function, or "" at module level,
+    top-level package imported) for each import in ``tree``."""
+    out = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, f"{scope}.{child.name}" if scope
+                      else child.name)
+                continue
+            if isinstance(child, ast.Import):
+                out.extend((scope, a.name.split(".")[0])
+                           for a in child.names)
+            elif isinstance(child, ast.ImportFrom):
+                out.append((scope, (child.module or "").split(".")[0]))
+            visit(child, scope)
+
+    visit(tree, "")
+    return out
+
+
 def test_nothing_in_the_data_package_imports_pyarrow():
-    import ast
+    """pyarrow, pandas and PIL are imported only inside the functions of
+    ``LIBRARY_IMPORTS`` (the card's host has none of them), never at a
+    module's level; tensorflow nowhere."""
     import pathlib
 
     import ray_tpu_torch.data
 
     root = pathlib.Path(ray_tpu_torch.data.__file__).parent
+    seen = set()
     for path in root.glob("*.py"):
-        for node in ast.walk(ast.parse(path.read_text())):
-            names = ([a.name for a in node.names]
-                     if isinstance(node, ast.Import)
-                     else [node.module or ""]
-                     if isinstance(node, ast.ImportFrom) else [])
-            assert not any(n.split(".")[0] in ("pyarrow", "pandas")
-                           for n in names), path
+        allowed = LIBRARY_IMPORTS.get(path.name, set())
+        for scope, pkg in _imports_by_function(ast.parse(path.read_text())):
+            assert pkg != "tensorflow", (path, scope)
+            if pkg in ("pyarrow", "pandas", "PIL"):
+                assert scope in allowed, (path, scope, pkg)
+                seen.add((path.name, scope))
+    assert seen == {(f, s) for f, names in LIBRARY_IMPORTS.items()
+                    for s in names}
 
 
 SCENARIOS = {}
@@ -744,10 +779,7 @@ def test_unported_paths_raise_with_their_reason(port):
     from ray_tpu_torch import data
 
     ds = data.range(4)
-    for call, match in ((ds.to_pandas, "pandas"), (ds.to_arrow, "pyarrow"),
-                        (lambda: ds.write_parquet("x"), "later slice"),
-                        (ds.iter_jax_batches, "JAX")):
-        with pytest.raises(NotImplementedError, match=match):
-            call()
+    with pytest.raises(NotImplementedError, match="JAX"):
+        ds.iter_jax_batches()
     with pytest.raises(ImportError, match="tensorflow"):
         ds.iter_tf_batches()

@@ -90,10 +90,29 @@ def _loader(tree_ref, cfg_kwargs):
     return loader
 
 
+def _drop_engine_metrics():
+    """Forget the port engine's metric families in this process.  A module
+    run before this one in the same process may have served through an
+    in-process engine with tracing on; a fresh ``init()`` re-uses the
+    registry, so this process's flusher would push those observations and
+    their exemplars into this module's cluster, on the same series as the
+    replica's.  The replica's own families are what the section reads."""
+    from ray_tpu_torch.llm import engine
+    from ray_tpu_torch.util import metrics
+
+    with engine._metrics_lock:
+        stale = list((engine._METRICS or {}).values())
+        engine._METRICS = None
+    with metrics._registry_lock:
+        metrics._registry[:] = [m for m in metrics._registry
+                                if not any(m is s for s in stale)]
+
+
 @pytest.fixture(scope="module")
 def port():
     import ray_tpu_torch as rt
 
+    _drop_engine_metrics()
     saved = {k: os.environ.get(k) for k in obs_smoke.SMOKE_ENV}
     os.environ.update(obs_smoke.SMOKE_ENV)
     from ray_tpu_torch.util import tracing

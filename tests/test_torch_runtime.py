@@ -15,6 +15,7 @@ import gc
 import os
 import re
 import struct
+import sys
 import threading
 import time
 import types
@@ -570,6 +571,19 @@ def test_tensor_header_names_torch_dtype():
     assert buf[0] == ser.TAG_TENSOR
     (n,) = ser._U32.unpack(buf[1:5])
     assert pickle.loads(buf[5:5 + n]) == ("bfloat16", (3,))
+
+
+def test_a_value_serializes_while_another_thread_imports_torch(
+        monkeypatch):
+    """A worker can return a result while a thread of its own is still
+    importing torch: ``sys.modules`` then holds the module without
+    ``Tensor``.  The value pickles; nothing asks that module for a
+    tensor type."""
+    from ray_tpu_torch._private import serialization as ser
+
+    monkeypatch.setitem(sys.modules, "torch", types.ModuleType("torch"))
+    size, token = ser.serialized_size({"rows": [1, 2]})
+    assert token[0] == "pickle" and size == 1 + len(token[1])
 
 
 def test_tensor_view_is_zero_copy_and_keeps_its_slot():
