@@ -126,8 +126,8 @@ Phases, each fatal on failure:
      the concurrent pair's tokens/s against phase 9's; (b) ``TorchTrainer``
      inside a trial with no GPU, its worker in a ``{"CPU": 1, "GPU": 1}``
      bundle, ``callbacks`` feeding ``tune.report``, a checkpoint every 4
-     of 16 steps and the worker's process exiting at step 10 once: the
-     second attempt from the step-8 checkpoint with the same loss there,
+     of 12 steps and the worker's process exiting at step 6 once: the
+     second attempt from the step-4 checkpoint with the same loss there,
      the killed process gone, no CUDA context in the trial's process;
      seconds to a new worker, checkpoint GB/s, steps lost; (c) PBT over 2
      trials at 2 layers, 12 steps: the weak trial exploits and its first
@@ -179,7 +179,22 @@ Phases, each fatal on failure:
      the read's MB/s, the fit's and the worker's seconds, tokens/s per
      epoch against phase 10's, ``next(batch)`` p50 per epoch, the job's
      snapshot;
- 10e. the observability plane (``run_observability``): the port's
+ 10e. the autoscaler on the card (``run_autoscaler``): an
+     ``AutoscalingCluster`` whose head advertises ``{"CPU": 2, "GPU": 0}``
+     and whose one node type is ``{"CPU": 2, "GPU": 1}`` (max 1, idle
+     5 s, a tick a second); ``build_llm_processor`` at the serving width
+     with one engine actor at ``num_gpus`` 1 over ``read_mongo`` of 32
+     prompts in 4 ``_id`` ranges, served by a wire-protocol server in this
+     process: exactly one node launched, the actor in a process of that
+     node (its pid not this one's, its node id the launched one), CUDA
+     rows and forward launches in it, each row's prompt its document's,
+     the ids equal to the bit to an ``_EngineUDF`` in this process fed
+     the same batches in the actor's order, and the node terminated once
+     idle, dead in the GCS, every process of it exited; the seconds from
+     ``take_all`` to the node's joining, the actor's readiness and the
+     last row, tok/s over the batches' span against phase 5's, and the
+     seconds from the last row to the termination;
+ 10f. the observability plane (``run_observability``): the port's
      ``scripts/obs_smoke.py`` in a child process of its own, so that a
      fresh cluster starts with the phase's SLO rules, sampler cadence and
      metrics flush: a traced nested workload assembled into one tree, the
@@ -3596,7 +3611,9 @@ def run_torch_trainer(report):
 # a time, each at half the card: the rates run from the strongest down,
 # so the weak trials reach each rung after its history holds the strong
 # ones' (the first arrival at a rung always continues).  (b) a trainer
-# inside a trial, its worker killed once at step TUNE_KILL_AT.  (c) PBT at
+# inside a trial, its worker killed once at step TUNE_KILL_AT (12 steps,
+# killed at 6, for the script's time since the autoscaler's phase came;
+# it was 16 and 10).  (c) PBT at
 # GPT-2's width cut to TUNE_PBT_LAYERS layers and TUNE_PBT_STEPS steps, for
 # the script's time (its 1200 s limit): the weak trial can exploit at steps
 # 4 and 8.
@@ -3604,7 +3621,7 @@ TUNE_SEED = 23
 TUNE_IDS = 512
 TUNE_ASHA_LRS = [6e-4, 1e-4, 1e-5, 1e-6]
 TUNE_ASHA = {"max_t": 24, "grace_period": 6, "reduction_factor": 2}
-TUNE_TRAINER_STEPS, TUNE_CKPT_EVERY, TUNE_KILL_AT = 16, 4, 10
+TUNE_TRAINER_STEPS, TUNE_CKPT_EVERY, TUNE_KILL_AT = 12, 4, 6
 TUNE_PBT_LAYERS, TUNE_PBT_STEPS, TUNE_PBT_INTERVAL = 2, 12, 4
 TUNE_PBT_LRS = [1e-6, 6e-4]
 TUNE_START_S = 120  # a trial's wait for its peer at the start barrier
@@ -3800,8 +3817,8 @@ def run_tune(report):
     steps and stop, and the concurrent pair's tokens/s against
     ``run_trainer``'s.  (b) one trial (1 CPU, no GPU) running
     ``TorchTrainer`` at one GPU worker with ``FailureConfig(max_failures=
-    1)``, a checkpoint every 4 of 16 steps, the worker's process exiting
-    at step 10 once: 16 steps, the second attempt from the step-8
+    1)``, a checkpoint every 4 of 12 steps, the worker's process exiting
+    at step 6 once: 12 steps, the second attempt from the step-4
     checkpoint, its first loss equal to the first attempt's at that step,
     the killed process gone, no CUDA context in the trial's process, 12
     launches a step in the worker; seconds to a new worker, checkpoint
@@ -3996,9 +4013,11 @@ def run_tune(report):
                 or out["committed"][-1][1] != TUNE_TRAINER_STEPS - 1):
             raise SystemExit(f"tune (b): the trainer did not end with "
                              f"{TUNE_TRAINER_STEPS} steps: {res['b']}")
-        if restored != 2 * TUNE_CKPT_EVERY:
+        last_ckpt = TUNE_KILL_AT // TUNE_CKPT_EVERY * TUNE_CKPT_EVERY
+        if restored != last_ckpt:
             raise SystemExit(f"tune (b): the second attempt started from "
-                             f"step {restored}, not the step-8 checkpoint")
+                             f"step {restored}, not the step-{last_ckpt} "
+                             f"checkpoint")
         if d_restore is None or d_restore > STEP_LOSS_TOL:
             raise SystemExit("tune (b): the first loss after the restore "
                              "disagrees with the first attempt's")
@@ -5114,6 +5133,356 @@ def run_data(report):
     print(f"data: launches on the phase's paths {launches}; the "
           f"{len(card_pids)} processes that held the card exited; session "
           f"{node.session_dir}; phase {res['phase_s']:.1f} s", flush=True)
+    return launches
+
+
+# The autoscaler on the card (``run_autoscaler``): batch inference over a
+# MongoDB collection on a GPU node that the autoscaler brings up.  The
+# head is an in-process node, which would add this host's card to its
+# resources: it is told ``"GPU": 0`` so that the engine actor waits for a
+# launched node.
+AUTOSCALER_DOCS = 32
+AUTOSCALER_BLOCKS = 4
+AUTOSCALER_IDLE_S = 5.0
+AUTOSCALER_JOIN_S = 120  # the launched node's wait to join the GCS
+AUTOSCALER_END_S = 60  # the idle node's wait to be terminated
+AUTOSCALER_TIMEOUT_S = 600  # the processor's whole run
+
+
+def smoke_mongod(docs, log):
+    """A MongoDB server for the phase, on the port's BSON codec
+    (``tests/test_data_extras.py``'s ``_fake_mongod``): OP_MSG ``find``
+    with ``_id`` ranges, ``sort``, ``projection`` and ``limit``, and
+    ``getMore``, on ``127.0.0.1`` in this process, one thread a
+    connection; each command's ``time.time()`` and decoded document go
+    to ``log``.  Returns the listening socket and its port."""
+    import socket
+    import struct
+    import threading
+
+    from ray_tpu_torch.data import mongo as M
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(8)
+    cursors, next_cursor, lock = {}, [1000], threading.Lock()
+
+    def match(doc, flt):
+        for k, cond in (flt or {}).items():
+            if k == "$and":
+                if not all(match(doc, f) for f in cond):
+                    return False
+                continue
+            v = doc.get(k)
+            if isinstance(cond, dict):
+                for op, bound in cond.items():
+                    if ((op == "$gte" and not v >= bound)
+                            or (op == "$lt" and not v < bound)
+                            or (op == "$lte" and not v <= bound)):
+                        return False
+            elif v != cond:
+                return False
+        return True
+
+    def cursor(rows, bs, coll):
+        batch, rest = rows[:bs], rows[bs:]
+        cid = 0
+        if rest:
+            with lock:
+                cid = next_cursor[0]
+                next_cursor[0] += 1
+                cursors[cid] = (rest, coll)
+        return batch, cid
+
+    def serve(conn):
+        try:
+            while True:
+                hdr = b""
+                while len(hdr) < 16:
+                    c = conn.recv(16 - len(hdr))
+                    if not c:
+                        return
+                    hdr += c
+                length, rid, _, _ = struct.unpack("<iiii", hdr)
+                body = b""
+                while len(body) < length - 16:
+                    body += conn.recv(length - 16 - len(body))
+                cmd, _ = M.decode_document(body, 5)
+                log.append((time.time(), cmd))
+                ns = f"{cmd['$db']}."
+                if "find" in cmd:
+                    rows = [d for d in docs if match(d, cmd.get("filter"))]
+                    if "sort" in cmd:
+                        key, direction = next(iter(cmd["sort"].items()))
+                        rows.sort(key=lambda d: d[key],
+                                  reverse=direction < 0)
+                    if cmd.get("projection"):
+                        keep = [k for k, v in cmd["projection"].items() if v]
+                        rows = [{k: d[k] for k in keep if k in d}
+                                for d in rows]
+                    if cmd.get("limit"):
+                        rows = rows[:cmd["limit"]]
+                    batch, cid = cursor(rows, cmd.get("batchSize", 101),
+                                        cmd["find"])
+                    reply = {"cursor": {"firstBatch": batch, "id": cid,
+                                        "ns": ns + cmd["find"]}, "ok": 1.0}
+                elif "getMore" in cmd:
+                    with lock:
+                        rest, coll = cursors.pop(cmd["getMore"], ([], ""))
+                    batch, cid = cursor(rest, cmd.get("batchSize", 101),
+                                        coll)
+                    reply = {"cursor": {"nextBatch": batch, "id": cid,
+                                        "ns": ns + coll}, "ok": 1.0}
+                else:
+                    reply = {"ok": 0.0, "errmsg": "unknown command"}
+                payload = b"\x00" * 5 + M.encode_document(reply)
+                conn.sendall(struct.pack("<iiii", 16 + len(payload), 1, rid,
+                                         2013) + payload)
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def accept_loop():
+        while True:
+            try:
+                c, _ = srv.accept()
+            except OSError:
+                return
+            threading.Thread(target=serve, args=(c,), daemon=True).start()
+
+    threading.Thread(target=accept_loop, daemon=True).start()
+    return srv, srv.getsockname()[1]
+
+
+def autoscaler_engine_udf():
+    """``data_engine_udf``'s probed UDF that also reports, in each output
+    batch, the node id of the process it ran in."""
+    base = data_engine_udf()
+
+    class NodeProbedEngineUDF(base):
+        def __call__(self, batch):
+            import numpy as np
+
+            import ray_tpu_torch
+
+            out = super().__call__(batch)
+            out["node"] = np.full(
+                len(out["prompt"]),
+                ray_tpu_torch.get_runtime_context().node_id_hex())
+            return out
+
+    return NodeProbedEngineUDF
+
+
+def process_tree(pid: int) -> set:
+    """``pid`` and every process below it."""
+    parents = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    parents[int(name)] = int(
+                        f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError):
+                pass
+    out, frontier = {pid}, {pid}
+    while frontier:
+        frontier = {p for p, pp in parents.items() if pp in frontier}
+        out |= frontier
+    return out
+
+
+def run_autoscaler(report):
+    """The autoscaler on the card (after ``run_data``): an
+    ``AutoscalingCluster`` of a card-less head (``{"CPU": 2, "GPU": 0}``)
+    and one node type ``{"CPU": 2, "GPU": 1}`` (max 1, idle after
+    AUTOSCALER_IDLE_S, a tick a second); ``build_llm_processor`` over
+    ``read_mongo`` of AUTOSCALER_DOCS documents ``{"_id", "prompt"}`` in
+    AUTOSCALER_BLOCKS ``_id`` ranges from ``smoke_mongod``, one engine
+    actor at ``num_gpus`` 1 (``data_processor_config``'s engine at the
+    serving width).  Fails unless exactly one node was launched, the
+    actor ran in a process of it (not this one) with its node id, its
+    rows hold CUDA results and the forward kernel's launches, each row's
+    prompt is its document's, the ids equal to the bit those of an
+    ``_EngineUDF`` in this process fed the same batches in the actor's
+    order, and the idle node is terminated, dead in the GCS and every
+    process of it exited.  Returns the forward kernel's launches in the
+    actor's process."""
+    import dataclasses
+    import struct
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import cluster_utils, data
+    from ray_tpu_torch.autoscaler import AutoscalerConfig, NodeTypeConfig
+    from ray_tpu_torch.data.mongo import ObjectId
+    from ray_tpu_torch.llm import batch as batch_mod
+
+    t_phase = time.monotonic()
+    res = {}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p and p != HERE])
+    # ObjectIds as a server makes them: 4 bytes of seconds, 5 of process,
+    # 3 of counter
+    docs = [{"_id": ObjectId(struct.pack(">I", 1_760_000_000 + i)
+                             + bytes.fromhex("a1b2c3d4e5")
+                             + i.to_bytes(3, "big")),
+             "prompt": frontend_prompt(400 + i, 64)}
+            for i in range(AUTOSCALER_DOCS)]
+    want = {d["_id"].raw.hex(): d["prompt"] for d in docs}
+    commands = []
+    srv, port = smoke_mongod(docs, commands)
+    asc = cluster_utils.AutoscalingCluster(
+        head_resources={"CPU": 2.0, "GPU": 0.0},
+        autoscaler_config=AutoscalerConfig(
+            node_types={"gpu": NodeTypeConfig(
+                resources={"CPU": 2.0, "GPU": 1.0}, max_workers=1)},
+            idle_timeout_s=AUTOSCALER_IDLE_S, interval_s=1.0),
+        min_workers=2, object_store_memory=RUNTIME_STORE_BYTES)
+    head = asc.cluster.head_node
+    created = []  # (node id, type, resources, time.time())
+    create = asc.provider.create_node
+    asc.provider.create_node = lambda t, r, nid: (
+        created.append((nid, t, dict(r), time.time())), create(t, r, nid))
+    seen = {}  # node id -> {"joined", "dead", "procs"}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            for n in head.gcs.list_nodes():
+                if n.is_head:
+                    continue
+                w = seen.setdefault(n.node_id, {"joined": time.time(),
+                                                "dead": None,
+                                                "procs": set()})
+                proc = asc.provider._procs.get(n.node_id)
+                if n.alive and proc is not None:
+                    w["procs"] |= process_tree(proc.pid)
+                if not n.alive and w["dead"] is None:
+                    w["dead"] = time.time()
+            stop.wait(0.05)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    card_pids = set()
+    try:
+        rt.init(_existing_node=head)
+        if rt.cluster_resources().get("GPU", 0) != 0:
+            raise SystemExit("autoscaler: the head advertises a card")
+        asc.start()
+        watcher.start()
+        config = dataclasses.replace(data_processor_config(), concurrency=1,
+                                     num_gpus=1)
+        genuine = batch_mod._EngineUDF
+        batch_mod._EngineUDF = autoscaler_engine_udf()
+        try:
+            ds = batch_mod.build_llm_processor(config)(data.read_mongo(
+                f"mongodb://127.0.0.1:{port}", "smoke", "prompts",
+                override_num_blocks=AUTOSCALER_BLOCKS))
+        finally:
+            batch_mod._EngineUDF = genuine
+        t0 = time.time()
+        box = {}
+        reader = threading.Thread(
+            target=lambda: box.update(rows=ds.take_all()), daemon=True)
+        reader.start()
+        while not seen:  # no fallback: the engine runs on a launched node
+            if time.time() - t0 > AUTOSCALER_JOIN_S:
+                raise SystemExit(f"autoscaler: no node joined within "
+                                 f"{AUTOSCALER_JOIN_S} s of take_all")
+            time.sleep(0.05)
+        reader.join(AUTOSCALER_TIMEOUT_S)
+        if "rows" not in box:
+            raise SystemExit(f"autoscaler: no rows after "
+                             f"{AUTOSCALER_TIMEOUT_S} s; nodes seen {seen}")
+        rows = box["rows"]
+        wall = time.time() - t0
+        if len(created) != 1 or len(seen) != 1:
+            raise SystemExit(f"autoscaler: launched {len(created)} nodes, "
+                             f"{len(seen)} joined the GCS")
+        (nid, ntype, nres, launched_at), = created
+        node = seen[nid]
+        deadline = time.monotonic() + AUTOSCALER_END_S
+        while node["dead"] is None:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"autoscaler: the idle node was not "
+                                 f"terminated within {AUTOSCALER_END_S} s")
+            time.sleep(0.05)
+        terminated_at = node["dead"]
+        card_pids = set(node["procs"])
+        res["exit_wait_s"] = wait_exited(card_pids, "autoscaler")
+    finally:
+        stop.set()
+        srv.close()
+        rt.shutdown()
+        asc.shutdown()
+    pids = sorted({int(r["pid"]) for r in rows})
+    nodes = sorted({str(r["node"]) for r in rows})
+    batches = {}
+    for r in rows:
+        batches.setdefault((int(r["pid"]), float(r["start"])), []).append(r)
+    launches = sum(int(b[0]["launches_after"]) - int(b[0]["launches_before"])
+                   for b in batches.values())
+    n_tok = sum(len(r["generated_tokens"]) for r in rows)
+    last = max(float(r["end"]) for r in rows)
+    first = min(float(r["start"]) for r in rows)
+    span = last - first
+    engine_rate = report["engine"]["output_tok_s"]
+    # the read tasks' range finds (the plan's two finds carry a sort)
+    reads = [t - t0 for t, c in commands if "find" in c and "sort" not in c]
+    res.update({
+        "rows": len(rows), "tokens": n_tok, "batches": len(batches),
+        "node_type": ntype, "node_resources": nres, "pids": pids,
+        "node_processes": len(card_pids), "launches": launches,
+        "cuda": sorted({bool(r["cuda"]) for r in rows}),
+        "launch_s": launched_at - t0, "join_s": node["joined"] - t0,
+        "actor_ready_s": max(float(r["ready_at"]) for r in rows) - t0,
+        "first_batch_s": first - t0, "last_row_s": last - t0,
+        "reads_s": [min(reads), max(reads)] if reads else None,
+        "wall_s": wall,
+        "tok_s_span": n_tok / span, "span_s": span,
+        "engine_tok_s": engine_rate, "terminated_after_s":
+        terminated_at - last})
+    print(f"autoscaler: 1 node launched ({ntype} {nres}) "
+          f"{res['launch_s']:.2f} s after take_all, joined at "
+          f"{res['join_s']:.2f} s, the engine actor (pid {pids}, this "
+          f"process {os.getpid()}) ready at {res['actor_ready_s']:.2f} s, "
+          f"the read tasks' finds at {res['reads_s']} s, the first batch "
+          f"at {res['first_batch_s']:.2f} s, the last of {len(rows)} rows "
+          f"at {res['last_row_s']:.2f} s; "
+          f"{n_tok} tokens in {len(batches)} batches, {n_tok / span:.1f} "
+          f"output tok/s over the batches' span ({span:.3f} s) = "
+          f"{n_tok / span / engine_rate:.4f} of run_engine's "
+          f"{engine_rate:.1f}; the node terminated "
+          f"{res['terminated_after_s']:.2f} s after the last row, its "
+          f"{len(card_pids)} processes exited {res['exit_wait_s']:.2f} s "
+          f"later; forward launches in the actor's process {launches}",
+          flush=True)
+    got = {str(r["_id"]): str(r["prompt"]) for r in rows}
+    short = [len(r["generated_tokens"]) for r in rows
+             if len(r["generated_tokens"]) != DATA_MAX_TOKENS]
+    if len(rows) != AUTOSCALER_DOCS or got != want or short:
+        raise SystemExit(f"autoscaler: {len(rows)} rows, prompts equal to "
+                         f"the documents' {got == want}, short {short}")
+    if (len(pids) != 1 or os.getpid() in pids or pids[0] not in card_pids
+            or nodes != [nid.hex()]):
+        raise SystemExit(f"autoscaler: the actor ran in {pids} on nodes "
+                         f"{nodes}, not in the launched node "
+                         f"{nid.hex()} ({sorted(card_pids)})")
+    if res["cuda"] != [True] or launches <= 0:
+        raise SystemExit(f"autoscaler: CUDA {res['cuda']}, forward "
+                         f"launches {launches}")
+    differ = data_reference_ids(rows)
+    res["ids_differ"] = differ
+    res["phase_s"] = time.monotonic() - t_phase
+    report["autoscaler"] = res
+    print(f"autoscaler: rows whose ids differ from this process's "
+          f"_EngineUDF on the same batches in the actor's order: {differ} "
+          f"of {len(rows)}; phase {res['phase_s']:.1f} s", flush=True)
+    if differ:
+        raise SystemExit(f"autoscaler: {differ} rows' ids differ from this "
+                         f"process's engine")
     return launches
 
 
@@ -7129,6 +7498,7 @@ def dreamer_profile(algo):
 
 
 def main() -> int:
+    t_script = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -7172,6 +7542,7 @@ def main() -> int:
     tune_launches = run_tune(report)
     plane_launches = run_actor_plane(report)
     data_launches = run_data(report)
+    autoscaler_launches = run_autoscaler(report)
     obs_launches = run_observability(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
@@ -7205,6 +7576,7 @@ def main() -> int:
                        "frontends": frontend_launches,
                        "serve_bench": serve_launches,
                        "serve": serve_runtime_launches,
+                       "autoscaler": autoscaler_launches,
                        "observability": obs_launches, **by_path}
         entry = {"name": name, "route": "cuda",
                  "source": f"ray_tpu_torch/ops/csrc/{src}",
@@ -7239,6 +7611,8 @@ def main() -> int:
             entry["replaces_on_serving_paths"] = "ray_tpu/llm/model.py:41-85"
         kernels.append(entry)
     report["kernels"] = kernels
+    report["script_s"] = time.monotonic() - t_script
+    print(f"script: {report['script_s']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -1,11 +1,11 @@
 """In-process multi-node cluster for tests and local experimentation.
 
-Counterpart of ``ray_tpu/cluster_utils.py``, less its
-``AutoscalingCluster`` (the port has no autoscaler yet); that is, of the
-reference's test workhorse (Ray's python/ray/cluster_utils.py:135
-``Cluster``): a head node (GCS service + scheduler + store) plus N worker
-nodes, each with its OWN object store (separate shm segment) and worker
-pool, joined through the head's GCS address.  Two node flavors:
+Counterpart of ``ray_tpu/cluster_utils.py``, that is, of the reference's
+test workhorse (Ray's python/ray/cluster_utils.py:135 ``Cluster``): a
+head node (GCS service + scheduler + store) plus N worker nodes, each
+with its OWN object store (separate shm segment) and worker pool, joined
+through the head's GCS address; ``AutoscalingCluster`` adds a live
+autoscaler that launches nodes as processes.  Two node flavors:
 
 - in-process (default): node services run as threads in the calling
   process — workers are real subprocesses either way.
@@ -174,3 +174,34 @@ class Cluster:
         if self.head_node is not None:
             self.head_node.shutdown()
             self.head_node = None
+
+
+class AutoscalingCluster:
+    """A head node + a live autoscaler over the fake (local-process) node
+    provider — Ray's AutoscalingCluster (python/ray/cluster_utils.py:26)
+    run against its fake multi-node provider, for autoscaling with no
+    cloud.  The head is an in-process ``Node``, which adds this host's
+    resources to ``head_resources`` (its cards too): pass ``"GPU": 0``
+    for a head that should leave GPU work to launched nodes."""
+
+    def __init__(self, head_resources: Optional[dict] = None,
+                 autoscaler_config=None, **node_args):
+        from ray_tpu_torch.autoscaler import (
+            AutoscalerConfig,
+            FakeNodeProvider,
+            StandardAutoscaler,
+        )
+
+        self.cluster = Cluster(head_node_args={
+            "resources": head_resources, **node_args})
+        self.provider = FakeNodeProvider(self.cluster.gcs_address)
+        self.autoscaler = StandardAutoscaler(
+            self.cluster.head_node.gcs, self.provider,
+            autoscaler_config or AutoscalerConfig())
+
+    def start(self):
+        self.autoscaler.start()
+
+    def shutdown(self):
+        self.autoscaler.shutdown()
+        self.cluster.shutdown()

@@ -197,9 +197,115 @@ def read_clickhouse(query: str, *, dsn: str = "http://localhost:8123",
         partition_key=partition_key, user=user, password=password))
 
 
-# The JAX package's names that wait for the connectors (a later slice):
-# read_audio, read_delta_sharing, read_iceberg, read_mongo, read_videos,
-# and the gated cloud readers it builds with _gated_reader.
+def _gated_reader(api_name: str, pip_pkg: str, sketch: str,
+                  import_name: Optional[str] = None):
+    """Cloud/warehouse datasources whose client wheels are in neither
+    image (Ray ships them in _internal/datasource/).  Each raises the
+    JAX package's ImportError naming the wheel rather than pretending.
+    import_name is the module to probe when it differs from the pip name
+    (cv2 vs opencv-python etc.)."""
+    mod = import_name or pip_pkg.replace("-", "_")
+
+    def reader(*args, **kwargs):
+        try:
+            __import__(mod)
+        except ImportError as e:
+            raise ImportError(
+                f"{api_name} requires the `{pip_pkg}` package (not in the "
+                f"TPU image).  Once installed: {sketch}") from e
+        raise NotImplementedError(
+            f"{api_name}: client wheel present but the TPU-image build "
+            f"gates this path; read via an exported format "
+            f"(read_parquet/read_sql) or file an issue")
+
+    reader.__name__ = api_name
+    reader.__qualname__ = api_name
+    reader.__doc__ = (f"{api_name} (gated: needs `{pip_pkg}`). {sketch}")
+    return reader
+
+
+read_bigquery = _gated_reader(
+    "read_bigquery", "google-cloud-bigquery",
+    "runs a BQ Storage API read session, one stream per read task",
+    import_name="google.cloud.bigquery")
+read_lance = _gated_reader(
+    "read_lance", "pylance",
+    "reads dataset fragments, one per read task", import_name="lance")
+read_hudi = _gated_reader(
+    "read_hudi", "hudi",
+    "reads file slices from the latest commit timeline")
+read_databricks_tables = _gated_reader(
+    "read_databricks_tables", "databricks-sql-connector",
+    "pages results through the Databricks SQL statement API",
+    import_name="databricks.sql")
+
+
+def read_mongo(uri: str, database: str, collection: str, *,
+               filter: Optional[dict] = None,
+               projection: Optional[dict] = None,
+               override_num_blocks: Optional[int] = None) -> Dataset:
+    """Rows of a MongoDB collection, partitioned by `_id` ranges — one
+    independent range cursor per read task, spoken over the raw OP_MSG
+    wire protocol (data/mongo.py), no pymongo and no pyarrow.  The plan
+    (two finds) runs in the caller's process, the reads in the tasks'."""
+    from ray_tpu_torch.data.mongo import mongo_tasks
+
+    return _read("ReadMongo",
+                 mongo_tasks(uri, database, collection,
+                             _par(override_num_blocks), filter=filter,
+                             projection=projection))
+
+
+def read_delta_sharing(url: str, *, limit: Optional[int] = None,
+                       override_num_blocks: Optional[int] = None) -> Dataset:
+    """Rows of a Delta Sharing table snapshot
+    (``<profile-file>#share.schema.table``), spoken over the open REST
+    protocol directly — presigned parquet files decode per read task
+    through pyarrow (data/delta_sharing.py, no `delta-sharing` wheel)."""
+    from ray_tpu_torch.data.delta_sharing import delta_sharing_tasks
+
+    ds = _read("ReadDeltaSharing",
+               delta_sharing_tasks(url, _par(override_num_blocks),
+                                   limit=limit))
+    # limitHint is advisory (servers MAY ignore it): enforce client-side
+    return ds.limit(limit) if limit is not None else ds
+
+
+def read_audio(paths, *,
+               override_num_blocks: Optional[int] = None) -> Dataset:
+    """Decoded audio per file: {amplitude float32[ch, samples],
+    sample_rate, path}.  PCM/float WAV decodes natively (stdlib);
+    other containers use `soundfile` when installed (data/audio.py)."""
+    from ray_tpu_torch.data.audio import audio_tasks
+
+    return _read("ReadAudio",
+                 audio_tasks(paths, _par(override_num_blocks)))
+
+
+def read_iceberg(table_dir: str, *, snapshot_id: Optional[int] = None,
+                 columns: Optional[List[str]] = None,
+                 override_num_blocks: Optional[int] = None) -> Dataset:
+    """Rows of an Iceberg table's current (or named) snapshot, one read
+    task per live parquet data file — native metadata-chain walk, no
+    pyiceberg; the data files through pyarrow (data/lakehouse.py)."""
+    from ray_tpu_torch.data.lakehouse import iceberg_tasks
+
+    return _read("ReadIceberg", iceberg_tasks(
+        table_dir, _par(override_num_blocks), snapshot_id=snapshot_id,
+        columns=columns))
+
+
+def read_videos(paths, *, override_num_blocks: Optional[int] = None
+                ) -> Dataset:
+    """One row per decoded frame ({"frame": HxWx3 uint8 RGB,
+    "frame_index", "path"}); AVI/MJPEG (through PIL) and raw DIB decode
+    natively, other containers fall back to cv2 when importable (Ray's
+    video datasource calls opencv; data/video.py)."""
+    from ray_tpu_torch.data.video import video_tasks
+
+    return _read("ReadVideos", video_tasks(paths, _par(override_num_blocks)))
+
+
 __all__ = [
     "Block",
     "BlockMetadata",
@@ -224,17 +330,22 @@ __all__ = [
     "from_tf",
     "from_torch",
     "range",
+    "read_audio",
     "read_avro",
     "read_binary_files",
     "read_clickhouse",
     "read_csv",
+    "read_delta_sharing",
+    "read_iceberg",
     "read_images",
     "read_json",
+    "read_mongo",
     "read_numpy",
     "read_parquet",
     "read_sql",
     "read_text",
     "read_tfrecords",
+    "read_videos",
     "read_webdataset",
     "service",
 ]

@@ -23,7 +23,6 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 
 import ray_tpu_torch as rt
-from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data import block as block_mod
 from ray_tpu_torch.data.block import Block
 
@@ -250,6 +249,8 @@ class DataIterator:
         ``CudaBatch``, its tensors recorded on the consumer's stream, which
         waits on the copy's event."""
         import torch
+
+        from ray_tpu_torch._device import resolve_device
 
         dev = resolve_device(device)
         host = self.iter_batches(batch_size=batch_size,

@@ -31,10 +31,9 @@ cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 TIMEOUT = 120
 
-# the names of the JAX package's data/__init__.py that wait for the data
-# package's connectors
-LATER = {"read_audio", "read_delta_sharing", "read_iceberg", "read_mongo",
-         "read_videos"}
+# the names of the JAX package's data/__init__.py that the port has yet to
+# export (none: the connectors came last)
+LATER = set()
 
 # the functions of the data package that may import pyarrow, pandas or PIL
 # (the readers and writes of the formats that need them), by file; nothing
@@ -45,6 +44,9 @@ LIBRARY_IMPORTS = {
     "datasource.py": {"parquet_tasks.read_file", "csv_tasks.read_file",
                       "json_tasks.read_file", "image_tasks",
                       "image_tasks.read_group", "make_write_fn.write_blocks"},
+    "lakehouse.py": {"iceberg_tasks.read_file"},
+    "delta_sharing.py": {"_fetch_parquet"},
+    "video.py": {"_decode_frame"},
 }
 
 # the executor's metric families: "data_op_" + each suffix

@@ -228,10 +228,30 @@ def test_report_barrier_commits_once_every_rank_reported(tmp_path):
     assert result.checkpoint.path == os.path.join(ctl.experiment_dir, "c0")
 
 
+def _first_report_committed(experiment_dir, timeout_s=60.0):
+    """Wait until the controller has committed report 0's checkpoint (its
+    manifest lists it): a rank that raises before then can be polled
+    before rank 0's report is, and the restart finds no checkpoint."""
+    import json
+    import time
+
+    path = os.path.join(experiment_dir, "checkpoint_manifest.json")
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            with open(path) as f:
+                if any(r["index"] == 0 for r in json.load(f)):
+                    return
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+    raise TimeoutError("report 0 was not committed")
+
+
 def _flaky_loop(config):
     """Reports once with a checkpoint; on the first attempt rank 1 then
-    raises, on the restart (which sees the committed checkpoint) both
-    ranks report twice more."""
+    raises (once that report is committed), on the restart (which sees
+    the committed checkpoint) both ranks report twice more."""
     ctx = train.get_context()
     restored = train.get_checkpoint()
     d = os.path.join(ctx.experiment_dir, f"ckpt-{ctx._report_index}")
@@ -242,6 +262,7 @@ def _flaky_loop(config):
     train.report({"phase": "first", "restored": restored is not None},
                  checkpoint=train.Checkpoint(d))
     if restored is None and ctx.get_world_rank() == 1:
+        _first_report_committed(ctx.experiment_dir)
         raise ValueError("worker 1 fails once")
     for i in range(2):
         train.report({"phase": "again", "i": i,
