@@ -211,6 +211,20 @@ Phases, each fatal on failure:
      tick ms, ``/metrics``' lines and bytes, the SLO seconds, goodput's
      buckets and MFU, and the replica's launches; the replica's warmup
      ids equal to the in-process engine's first ids;
+ 10g. the runtime's benchmarks on the card's host (``run_core_bench``),
+     each through its entry point in a child process with a cluster or
+     store daemon of its own: ``rtpu microbenchmark`` (its ten task,
+     actor-call and put rates, its record written under
+     ``chiprun_out/``), ``store_bench --reps 2`` (the store's eight put
+     and get rates at 1KB and 10MB, one client and four),
+     ``data_bench --images 256`` (the data service at one and four splits
+     against four private pipelines, images/s, cache hits, failovers) and
+     ``scale_bench --quick`` (20,000 tasks through the native raylet, 20
+     actors, 4 placement groups over 3 nodes): every rate above 0,
+     ``shared_1`` hitting the cache,
+     ``shared_4`` failing over never, every task completed, actor alive
+     and group placed, no committed ``BENCH_*.json`` changed; perf's sync
+     actor call in us beside phase 6's no-op call p50 in this process;
  11. the MoE trainer at Mixtral 8x7B's widths cut to one layer, batch 1 x
      seq 4096 (``run_moe_trainer``), between two readings of the kernels
      at its attention shape (32 heads on 8 KV heads, head_dim 128): logits
@@ -5489,6 +5503,47 @@ def run_autoscaler(report):
 OBS_TIMEOUT_S = 360  # the child's whole run; it takes ~25 s on the CPU
 
 
+def relay_child(argv, tag: str, log_name: str, timeout_s: float,
+                env_extra: dict = None):
+    """Run ``python <argv>`` from the checkout's root in a session of its
+    own, its output relayed line by line under ``tag`` and written to
+    ``chiprun_out/<log_name>``; the session is killed when the child ends
+    or times out (it holds the child's cluster's workers too).  Returns
+    the exit code (None on a timeout) and the output's lines."""
+    import threading
+
+    env = dict(os.environ, **(env_extra or {}))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p and p != HERE])
+    proc = subprocess.Popen(
+        [sys.executable, *argv], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    lines = []
+
+    def relay():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            print(f"{tag}: {lines[-1]}", flush=True)
+
+    reader = threading.Thread(target=relay, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        reader.join(10)
+    with open(os.path.join(OUT_DIR, log_name), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return rc, lines
+
+
 def run_observability(report):
     """The observability plane on the card (after ``run_data``): the
     port's ``python -m ray_tpu_torch.scripts.obs_smoke`` in a child process
@@ -5510,39 +5565,9 @@ def run_observability(report):
     path = os.path.join(OUT_DIR, "obs_smoke.json")
     if os.path.exists(path):
         os.remove(path)
-    env = dict(os.environ, **obs_smoke.SMOKE_ENV)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p and p != HERE])
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "ray_tpu_torch.scripts.obs_smoke",
-         "--report", path], cwd=HERE, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    lines = []
-
-    def relay():
-        for line in proc.stdout:
-            lines.append(line.rstrip("\n"))
-            print(f"observability: {lines[-1]}", flush=True)
-
-    import threading
-
-    reader = threading.Thread(target=relay, daemon=True)
-    reader.start()
-    try:
-        rc = proc.wait(timeout=OBS_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        rc = None
-    finally:
-        # the child's session holds its cluster's workers too
-        try:
-            os.killpg(proc.pid, 9)
-        except ProcessLookupError:
-            pass
-        proc.wait()
-        reader.join(10)
-    with open(os.path.join(OUT_DIR, "obs_smoke.log"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+    rc, _ = relay_child(["-m", "ray_tpu_torch.scripts.obs_smoke",
+                         "--report", path], "observability", "obs_smoke.log",
+                        OBS_TIMEOUT_S, obs_smoke.SMOKE_ENV)
     if rc != 0:
         raise SystemExit(f"observability: obs_smoke exited {rc} (timeout "
                          f"{OBS_TIMEOUT_S} s); its output is in "
@@ -5597,6 +5622,148 @@ def run_observability(report):
                          f"{anat['warmup_tokens']} differ from the in-process "
                          f"engine's {res['serving_metrics']['tokens']}")
     return anat["replica_launches"] + res["serving_metrics"]["launches"]
+
+
+# The port's runtime benchmarks, each through its entry point in a child
+# process with a cluster (or store daemon) of its own: (label, argv,
+# timeout s).  perf's record goes under chiprun_out/; none of them writes
+# into the checkout.  For the script's time, store_bench runs 2 windows a
+# metric (its default 4) and data_bench 256 images (its default 512): at
+# the defaults the four took 143.9 s on an H100 machine's 8-core host.
+CORE_BENCHES = (
+    ("perf", ["-m", "ray_tpu_torch.scripts.cli", "microbenchmark",
+              "--out", os.path.join(OUT_DIR, "core_bench.json")], 180),
+    ("store_bench", ["-m", "ray_tpu_torch._private.store_bench",
+                     "--reps", "2"], 150),
+    ("data_bench", ["-m", "ray_tpu_torch._private.data_bench",
+                    "--images", "256"], 150),
+    ("scale_bench", ["-m", "ray_tpu_torch._private.scale_bench",
+                     "--quick"], 180),
+)
+PERF_LABELS = (
+    "single client tasks sync (batch 100)", "1:1 actor calls sync",
+    "1:1 actor calls async (batch 50)",
+    "n:n actor calls async (4 actors, batch 200)",
+    "1:1 threaded actor calls async (batch 50)", "single client put (1KB)",
+    "single client put (10MB)", "single client get <- plasma (10MB)",
+    "multi client put (1KB, 4 clients)",
+    "multi client put (10MB, 4 clients)")
+STORE_BENCH_KEYS = (
+    "single client put (1KB)", "single client get (1KB)",
+    "single client put (10MB)", "single client get (10MB)",
+    "multi client put (1KB, 4 clients)", "multi client get (1KB, 4 clients)",
+    "multi client put (10MB, 4 clients)",
+    "multi client get (10MB, 4 clients)")
+# the pre-port records of the JAX package's benches, which the port's must
+# never write
+COMMITTED_BENCH_FILES = ("BENCH_core.json", "BENCH_data.json",
+                         "BENCH_scale.json")
+
+
+def json_lines(lines) -> dict:
+    """The JSON objects a child printed on lines of their own, merged."""
+    out = {}
+    for line in lines:
+        if line.startswith("{"):
+            out.update(json.loads(line))
+    return out
+
+
+def file_digests(names) -> dict:
+    import hashlib
+
+    return {n: hashlib.sha256(open(os.path.join(HERE, n), "rb").read())
+            .hexdigest() if os.path.exists(os.path.join(HERE, n)) else None
+            for n in names}
+
+
+def run_core_bench(report):
+    """The port's runtime benchmarks on the card's host (after
+    ``run_observability``): ``rtpu microbenchmark`` (perf's ten rates,
+    its record written to ``chiprun_out/core_bench.json``), the store's
+    data plane (``store_bench``), the data service at one and four splits
+    against four private pipelines (``data_bench``) and the control
+    plane's 1/50 envelope (``scale_bench --quick``), each in a child
+    process of its own.  Fails when a child exits non-zero or times out,
+    when a perf label or a store key is missing or not above 0, when
+    ``shared_1`` hits no cache or ``shared_4`` fails over, when a scale
+    invariant fails (tasks completed against submitted, actors alive
+    against created, placement groups placed against asked), or when a
+    committed ``BENCH_*.json`` changed.  No kernel runs here."""
+    t_phase = time.monotonic()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    record_path = os.path.join(OUT_DIR, "core_bench.json")
+    if os.path.exists(record_path):
+        os.remove(record_path)
+    before = file_digests(COMMITTED_BENCH_FILES)
+    res, out = {}, {}
+    for label, argv, timeout_s in CORE_BENCHES:
+        t0 = time.monotonic()
+        rc, lines = relay_child(argv, f"core_bench {label}",
+                                f"core_bench_{label}.log", timeout_s)
+        if rc != 0:
+            raise SystemExit(f"core_bench: {label} exited {rc} (timeout "
+                             f"{timeout_s} s); its output is in "
+                             f"chiprun_out/core_bench_{label}.log")
+        res[f"{label}_s"] = time.monotonic() - t0
+        out[label] = json_lines(lines)
+    if file_digests(COMMITTED_BENCH_FILES) != before:
+        raise SystemExit("core_bench: a committed BENCH_*.json changed")
+    with open(record_path) as f:
+        perf = json.load(f)
+    rates = perf["results_per_s"]
+    store = out["store_bench"]["store_bench"]
+    data = out["data_bench"]["data_bench"]
+    scale = out["scale_bench"]["scale_bench"]
+    res.update(perf=perf, store=store,
+               store_audit=out["store_bench"]["store_audit"], data=data,
+               scale=scale)
+    res["phase_s"] = time.monotonic() - t_phase
+    report["core_bench"] = res
+    card = card_line()
+    for name in PERF_LABELS:
+        print(f"core_bench perf: {name} {rates.get(name)} /s ({card})",
+              flush=True)
+    for name in STORE_BENCH_KEYS:
+        print(f"core_bench store: {name} {store.get(name)} /s ({card})",
+              flush=True)
+    for name in ("independent_4", "shared_1", "shared_4"):
+        print(f"core_bench data: {name} {data[name]} ({card})", flush=True)
+    print(f"core_bench data: shared_4 / independent_4 "
+          f"{data['shared_vs_independent_gain']} ({card})", flush=True)
+    for name in ("tasks", "actors", "pgs_nodes"):
+        print(f"core_bench scale: {name} {scale[name]} ({card})",
+              flush=True)
+    sync_us = 1e6 / rates["1:1 actor calls sync"]
+    script_us = 1e3 * report["runtime"]["actor"]["noop_call_ms"]["p50"]
+    res["actor_call_us"] = {"perf_sync": sync_us,
+                            "run_runtime_noop_p50": script_us}
+    print(f"core_bench: one sync actor call {sync_us:.1f} us in perf's "
+          f"clean process, {script_us:.1f} us p50 for run_runtime's no-op "
+          f"call in this process ({card})", flush=True)
+    print(f"core_bench: phase {res['phase_s']:.1f} s (perf "
+          f"{res['perf_s']:.1f}, store_bench {res['store_bench_s']:.1f}, "
+          f"data_bench {res['data_bench_s']:.1f}, scale_bench "
+          f"{res['scale_bench_s']:.1f})", flush=True)
+    bad = [n for n in PERF_LABELS if not rates.get(n, 0) > 0]
+    bad += [n for n in STORE_BENCH_KEYS if not store.get(n, 0) > 0]
+    if bad:
+        raise SystemExit(f"core_bench: missing or not above 0: {bad}")
+    if not data["shared_1"]["cache_hits"] > 0:
+        raise SystemExit("core_bench: shared_1 hit no cache")
+    if data["shared_4"]["failovers"] != 0:
+        raise SystemExit(f"core_bench: shared_4 failed over "
+                         f"{data['shared_4']['failovers']} times")
+    tasks, actors, pgs = scale["tasks"], scale["actors"], scale["pgs_nodes"]
+    if tasks["completed"] != tasks["n_tasks"]:
+        raise SystemExit(f"core_bench: {tasks['completed']} of "
+                         f"{tasks['n_tasks']} tasks completed")
+    if actors["alive"] != actors["n_actors"]:
+        raise SystemExit(f"core_bench: {actors['alive']} of "
+                         f"{actors['n_actors']} actors alive")
+    if pgs["pgs_created"] != pgs["n_pgs"]:
+        raise SystemExit(f"core_bench: {pgs['pgs_created']} of "
+                         f"{pgs['n_pgs']} placement groups placed")
 
 
 # Mixtral 8x7B's widths (MoEConfig.mixtral_8x7b()) cut to one layer; one
@@ -7544,6 +7711,7 @@ def main() -> int:
     data_launches = run_data(report)
     autoscaler_launches = run_autoscaler(report)
     obs_launches = run_observability(report)
+    run_core_bench(report)
     mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
     moe_launches = run_moe_trainer(report)
     mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))

@@ -18,7 +18,7 @@ import sys
 import time
 from typing import Optional
 
-from ray_tpu_torch._private import protocol
+from ray_tpu_torch._private import perf, protocol
 
 
 def find_address(address: Optional[str]) -> str:
@@ -710,15 +710,8 @@ def cmd_summary(args):
         print(f"  {name:40s} {line}")
 
 
-# The JAX package's `check` and `microbenchmark` run its static checker
-# and its perf module, which the port has not ported yet.
-_LATER = ("rtpu {} needs the {}, which the port does not have yet: it is "
-          "ROADMAP.md §1 item 6 (benchmarks and tools of the JAX tree)")
-
-
 def cmd_microbenchmark(args):
-    raise SystemExit(_LATER.format("microbenchmark",
-                                   "perf module (_private/perf.py)"))
+    perf.run_and_record(args)
 
 
 def cmd_start(args):
@@ -968,8 +961,10 @@ def cmd_serve(args):
 def cmd_check(args):
     """Static analysis (`rtpu check`): the JAX package runs its drift,
     lock-order, purity, metrics, sharding and wire-protocol passes here."""
-    raise SystemExit(_LATER.format("check",
-                                   "static checker (_private/staticcheck/)"))
+    raise SystemExit("rtpu check needs the static checker "
+                     "(_private/staticcheck/), which the port does not have "
+                     "yet: it is ROADMAP.md §1 item 6 (benchmarks and tools "
+                     "of the JAX tree)")
 
 
 def main(argv=None):
@@ -1082,6 +1077,7 @@ def main(argv=None):
                          "parallel/comm.py's DEFAULT_DCN_GBPS)")
     sp.set_defaults(fn=cmd_comm)
     sp = sub.add_parser("microbenchmark")
+    perf.add_arguments(sp)
     sp.set_defaults(fn=cmd_microbenchmark)
     sp = sub.add_parser("start")
     sp.add_argument("--head", action="store_true")

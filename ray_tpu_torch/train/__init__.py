@@ -2,8 +2,8 @@
 controller and worker actors, checkpoints, and the Llama-3 8B recipe.
 
 Counterpart of ``ray_tpu/train``, less ``JaxTrainer`` (whose counterpart
-is ``DataParallelTrainer``) and the gradient-boosting trainers (no device
-compute, and neither library is installed).  A controller in the calling
+is ``DataParallelTrainer``, the base of the gradient-boosting trainers
+here).  A controller in the calling
 process drives one worker actor per GPU, each in a bundle of one
 placement group of the port's runtime; the ranks form one
 ``torch.distributed`` process group, build a ``DeviceMesh`` over it and
@@ -36,6 +36,7 @@ from ray_tpu_torch.train.controller import (
     TrainController,
     TrainingFailedError,
 )
+from ray_tpu_torch.train.gbdt import LightGBMTrainer, XGBoostTrainer
 from ray_tpu_torch.train.step import (
     create_train_state,
     data_sharding,
@@ -48,9 +49,9 @@ from ray_tpu_torch.train.worker_group import TrainWorker, WorkerGroup
 
 __all__ = [
     "Checkpoint", "CheckpointConfig", "CheckpointManager",
-    "DataParallelTrainer", "FailureConfig", "Result", "RunConfig",
-    "ScalingConfig", "TorchConfig", "TorchTrainer", "TrainContext",
-    "TrainController", "TrainWorker",
+    "DataParallelTrainer", "FailureConfig", "LightGBMTrainer", "Result",
+    "RunConfig", "ScalingConfig", "TorchConfig", "TorchTrainer",
+    "TrainContext", "TrainController", "TrainWorker", "XGBoostTrainer",
     "TrainingFailedError", "WorkerGroup", "create_train_state",
     "data_sharding", "default_optimizer", "get_checkpoint", "get_context",
     "get_dataset_shard", "load_pytree", "make_train_step", "report",

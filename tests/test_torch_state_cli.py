@@ -5,8 +5,8 @@ The pure functions the CLI and the dashboard share (the object join, the
 leak report, grouping by call site, task summaries, the chrome timeline,
 trace assembly) are held to the JAX package's on the same seeded rows:
 equal results.  The CLI's commands then run against one port cluster of
-this module (its head sampler at 0.5 s), and ``check`` / ``microbenchmark``,
-whose tools the port has not ported, raise.
+this module (its head sampler at 0.5 s), ``microbenchmark`` among them;
+``check``, whose static checker the port has not ported, raises.
 """
 
 import contextlib
@@ -282,16 +282,35 @@ def test_cli_events_slo_and_top(port):
                for r in tstate.tsdb_overview(60.0))
 
 
-def test_check_and_microbenchmark_raise(port):
+def test_check_raises_naming_the_roadmap_item(port):
     _, node = port
     from ray_tpu_torch.scripts import cli
 
-    for cmd in ("check", "microbenchmark"):
-        with pytest.raises(SystemExit, match="§1 item 6"):
-            cli.main([cmd])
+    with pytest.raises(SystemExit, match="§1 item 6"):
+        cli.main(["check"])
     assert tstate.list_data_jobs() == []
     out = _cli(node, "serve")
     assert "no serve deployments" in out
+
+
+def test_microbenchmark_writes_its_record_to_out(port, tmp_path):
+    """``rtpu microbenchmark`` on the running cluster, at short windows:
+    its ten rates and their ratios to Ray's, written only to ``--out``."""
+    from ray_tpu_torch.scripts import cli
+
+    path = tmp_path / "core.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["microbenchmark", "--out", str(path), "--window", "0.05",
+                  "--reps", "1"])
+    record = json.loads(path.read_text())
+    rates = record["results_per_s"]
+    assert len(rates) == 10 and all(v > 0 for v in rates.values()), rates
+    assert json.dumps({"microbenchmark": rates}) in buf.getvalue()
+    assert set(record["vs_reference"]) < set(rates)
+    assert record["reference_source"] == \
+        "release/perf_metrics/microbenchmark.json"
+    assert os.listdir(tmp_path) == ["core.json"]
 
 
 def test_chrome_export_holds_the_cluster_task_timeline(port, tmp_path):

@@ -434,8 +434,6 @@ def test_trainers_pass_callbacks_to_the_controller(tmp_path):
 # the JAX package's names the port leaves out, and why
 TRAIN_LEFT_OUT = {
     "JaxTrainer": "DataParallelTrainer is its counterpart",
-    "XGBoostTrainer": "no device compute; xgboost is in neither image",
-    "LightGBMTrainer": "no device compute; lightgbm is in neither image",
 }
 LLM_LEFT_OUT = {}
 
