@@ -4,6 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
+  0. the port's static checker (``run_check``) in a child process on the
+     card's host, before any card work: ``rtpu check --json`` over the
+     checkout, clean, all six passes, neither torch nor JAX imported; its
+     counts and the child's wall and CPU time printed;
   1. card: print the card's name and power limit; build the kernels from
      the sources in ``ray_tpu_torch/ops/csrc`` (one nvcc per source, in
      parallel) and print ptxas's registers and spills for each
@@ -107,7 +111,9 @@ Phases, each fatal on failure:
      rows dealt by ``streaming_split``'s coordinator actor, read by
      ``get_dataset_shard("train").iter_torch_batches`` onto the card
      (pinned staging, a side stream, two batches in flight) into phase
-     9's GPT-2 124M step, 3 warm-up and 24 timed steps: the loss finite
+     9's GPT-2 124M step, 3 warm-up and 24 timed steps, the group formed
+     at ``TorchConfig``'s default address (the rank's ``MASTER_ADDR`` and
+     ``MASTER_PORT`` printed): the loss finite
      and falling, the rows consumed equal to the source's (sha256), the
      worker's first loss equal to this process's own step on the same
      parameters and rows, 12 launches of each kernel a step in the
@@ -3420,8 +3426,9 @@ def torch_trainer_loop(config):
     wait, the timed steps' device time, whether each batch's copy had
     completed when the step before it ended, a checksum of the token ids
     consumed (all of them, and each batch's), the pid of the split
-    coordinator feeding its shard, and the worker's kernel launches over
-    the loop (its counters are its own process's)."""
+    coordinator feeding its shard, the group's ``MASTER_ADDR`` and
+    ``MASTER_PORT`` as the rank saw them, and the worker's kernel launches
+    over the loop (its counters are its own process's)."""
     import hashlib
 
     import torch
@@ -3485,6 +3492,8 @@ def torch_trainer_loop(config):
         "rows": rows.shape[0], "exhausted": exhausted,
         "rows_sha256": hashlib.sha256(rows.tobytes()).hexdigest(),
         "launches": launches, "device": torch.cuda.get_device_name(device),
+        "master": {k: os.environ.get(k)
+                   for k in ("MASTER_ADDR", "MASTER_PORT")},
         "pid": os.getpid()})
 
 
@@ -3555,6 +3564,17 @@ def run_torch_trainer(report):
     if m["pid"] == os.getpid():
         raise SystemExit("the TorchTrainer loop ran in this process")
     exit_wait_s = wait_exited([m["pid"]], "torch trainer")
+    from ray_tpu_torch.train.worker_group import _default_master_addr
+
+    default_addr = _default_master_addr()
+    print(f"torch trainer group: the rank saw MASTER_ADDR="
+          f"{m['master']['MASTER_ADDR']} MASTER_PORT="
+          f"{m['master']['MASTER_PORT']} (TorchConfig's default address "
+          f"on this host: {default_addr})", flush=True)
+    if m["master"]["MASTER_ADDR"] != default_addr \
+            or not int(m["master"]["MASTER_PORT"] or 0) > 0:
+        raise SystemExit(f"the group formed at {m['master']}, not at "
+                         f"TorchConfig's default address {default_addr}")
 
     # this process's own first step on the same parameters and rows
     gen = torch.Generator(device="cuda").manual_seed(TORCH_TRAINER_SEED)
@@ -5501,6 +5521,66 @@ def run_autoscaler(report):
 
 
 OBS_TIMEOUT_S = 360  # the child's whole run; it takes ~25 s on the CPU
+
+
+CHECK_TIMEOUT_S = 120
+CHECK_PASSES = 6
+
+
+def run_check(report):
+    """The port's static checker on the card's host (phase 0, before any
+    card work): ``ray_tpu_torch._private.staticcheck``'s ``main`` with
+    ``--json`` in a child process, which then prints the heavy modules it
+    holds.  Prints the violations, allowlisted findings and passes, and
+    the child's wall and CPU time (user + sys, from
+    ``getrusage(RUSAGE_CHILDREN)``: this process runs no other child
+    meanwhile).  Fails unless the child exits 0 with ``ok`` true, all six
+    passes ran, and neither torch nor JAX is in its ``sys.modules``."""
+    import resource
+
+    code = ("import json, sys\n"
+            "from ray_tpu_torch._private import staticcheck\n"
+            "rc = staticcheck.main(['--json'])\n"
+            "print(json.dumps(sorted(m for m in ('torch', 'jax')\n"
+            "                        if m in sys.modules)))\n"
+            "sys.exit(rc)\n")
+    before = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                          capture_output=True, text=True,
+                          timeout=CHECK_TIMEOUT_S,
+                          env=dict(os.environ, PYTHONPATH=HERE))
+    wall = time.monotonic() - t0
+    after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    cpu = (after.ru_utime - before.ru_utime) + (after.ru_stime
+                                                - before.ru_stime)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "check.json"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise SystemExit(f"rtpu check exited {proc.returncode}: "
+                         f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    doc_text, _, modules_line = proc.stdout.rstrip().rpartition("\n")
+    doc, modules = json.loads(doc_text), json.loads(modules_line)
+    violations = [f for f in doc["findings"] if not f["allowlisted"]]
+    allowlisted = len(doc["findings"]) - len(violations)
+    print(f"check: {len(violations)} violation(s), {allowlisted} "
+          f"allowlisted, {len(doc['passes'])} pass(es) "
+          f"({', '.join(doc['passes'])}); child {wall:.2f} s wall, "
+          f"{cpu:.2f} s CPU (the checker's own elapsed "
+          f"{doc['elapsed_s']:.3f} s); modules held: {modules or 'none'}",
+          flush=True)
+    report["check"] = {"violations": len(violations),
+                       "allowlisted": allowlisted, "passes": doc["passes"],
+                       "unused_allows": len(doc["unused_allows"]),
+                       "wall_s": wall, "cpu_s": cpu,
+                       "elapsed_s": doc["elapsed_s"], "modules": modules}
+    if not doc["ok"] or violations:
+        raise SystemExit(f"rtpu check found violations: {violations}")
+    if len(doc["passes"]) != CHECK_PASSES:
+        raise SystemExit(f"rtpu check ran {doc['passes']}")
+    if modules:
+        raise SystemExit(f"rtpu check imported {modules}")
 
 
 def relay_child(argv, tag: str, log_name: str, timeout_s: float,
@@ -7680,6 +7760,7 @@ def main() -> int:
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
     print(f"card: {report['card']}", flush=True)
+    run_check(report)
     t0 = time.monotonic()
     paths = _build.build(["flash_fwd", "flash_bwd"])
     report["build_s"] = time.monotonic() - t0

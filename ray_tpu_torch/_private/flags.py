@@ -218,6 +218,9 @@ _SPECS = [
        "(retriable-FIFO policy); 0 disables the monitor"),
     _s("RAY_TPU_NUM_GPUS", "",
        "Override the detected GPU count for this node"),
+    _s("RAY_TPU_NUM_CHIPS", "",
+       "Override the TPU chip count util.accelerators.tpu reports for "
+       "this host (an autoscaler's TPU node types read it)"),
     # -- observability ------------------------------------------------------
     _b("RTPU_LOG_TO_DRIVER", True,
        "Stream worker stdout/stderr lines to the driver"),
@@ -413,6 +416,7 @@ FLAGS: dict[str, FlagSpec] = {s.name: s for s in _SPECS}
 _NO_PROPAGATE = {
     "RTPU_GCS_ADDRESS", "RAY_TPU_WORKER_ID", "RAY_TPU_NODE_ID",
     "RAY_TPU_ADDRESS", "RTPU_LISTEN_HOST", "RAY_TPU_NUM_GPUS",
+    "RAY_TPU_NUM_CHIPS",
     "RTPU_GCS_PERSIST", "RTPU_DEBUG_SCHED", "RTPU_TASK_ATTR_PATH",
 }
 

@@ -959,12 +959,24 @@ def cmd_serve(args):
 
 
 def cmd_check(args):
-    """Static analysis (`rtpu check`): the JAX package runs its drift,
-    lock-order, purity, metrics, sharding and wire-protocol passes here."""
-    raise SystemExit("rtpu check needs the static checker "
-                     "(_private/staticcheck/), which the port does not have "
-                     "yet: it is ROADMAP.md §1 item 6 (benchmarks and tools "
-                     "of the JAX tree)")
+    """Static analysis (`rtpu check`): cross-language drift, lock-order,
+    hot-path purity, metrics-naming, sharding-layout and wire-protocol
+    passes over the port's tree.  No torch or JAX import and no cluster,
+    so it runs anywhere in a few seconds."""
+    from ray_tpu_torch._private import staticcheck
+
+    forward = []
+    if args.passes_csv:
+        forward.append(args.passes_csv)
+    if args.root:
+        forward += ["--root", args.root]
+    for name in args.passes or []:
+        forward += ["--pass", name]
+    if args.json:
+        forward.append("--json")
+    if args.no_allowlist:
+        forward.append("--no-allowlist")
+    raise SystemExit(staticcheck.main(forward))
 
 
 def main(argv=None):

@@ -39,9 +39,9 @@ from ray_tpu_torch.serve.replica import ReplicaActor
 
 
 # The replica death counter is the JAX controller's family, named "serve_"
-# + the suffix below (spelled so for the metrics lint, as the replica's
-# families are: ``serve/replica.py``).
-_DEATH_FAMILY = ("serve_", "replica_deaths_total")
+# + its suffix (spelled so for the metrics lint, as the replica's families
+# are: ``serve/replica.py``).
+_FAMILY_PREFIX = "serve_"
 _DEATH_COUNTER = None
 
 
@@ -54,7 +54,7 @@ def _death_counter():
         from ray_tpu_torch.util.metrics import Counter
 
         _DEATH_COUNTER = Counter(
-            "".join(_DEATH_FAMILY),
+            _FAMILY_PREFIX + "replica_deaths_total",
             description="Serve replicas observed dead and purged from "
                         "routing (controller _note_dead)",
             tag_keys=("app", "deployment"))

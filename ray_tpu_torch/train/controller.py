@@ -67,7 +67,7 @@ class TrainController:
         checkpoint)`` once every rank delivered report ``index``, with the
         committed checkpoint or None.  ``group_options``: the
         ``WorkerGroup``'s process-group options (``backend``,
-        ``timeout_s``)."""
+        ``timeout_s``, ``master_addr``, ``master_port``)."""
         self._train_fn = train_fn
         self._group_options = group_options or {}
         self._config = train_loop_config

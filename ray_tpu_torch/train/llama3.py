@@ -111,10 +111,6 @@ def llama3_train_loop(config: dict):
         return np_rng.integers(0, cfg.vocab_size, size=(batch, seq_len + 1),
                                dtype=np.int32)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     with gp.compile_bracket():
         if device.type == "cuda":  # the kernels build at first use
             from ray_tpu_torch.ops import _build
@@ -138,7 +134,8 @@ def llama3_train_loop(config: dict):
                     t0 = time.perf_counter()
                     # each rank writes its shards; a restore reshards
                     nbytes = save_pytree(ckpt_dir, state)
-                    sync()
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
                     save_s = time.perf_counter() - t0
                 rep = gp.report()
                 train_context.report(

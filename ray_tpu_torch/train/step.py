@@ -39,8 +39,8 @@ from torch.distributed.tensor import DTensor
 from ray_tpu_torch._device import DeviceLike
 from ray_tpu_torch.ops.ring_attention import SEQUENCE_PARALLEL
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
-from ray_tpu_torch.parallel.sharding import LocalShards, placements, \
-    shard_tree, to_partition_spec
+from ray_tpu_torch.parallel.sharding import LocalShards, local_block, \
+    placements, shard_tree, to_partition_spec
 
 ADAM_EPS = 1e-8  # optax.adamw's eps, outside the square root
 
@@ -298,13 +298,18 @@ def make_train_step(model: Any, cfg: Any, optimizer: ClippedAdamW,
     On a mesh with an axis above 1 the state must come from
     ``create_train_state(..., mesh=mesh)``, every rank passes the same
     global tokens, and the metrics are the global ones (module
-    docstring); ``loss_fn`` must then be the model's own."""
+    docstring).  A caller's ``loss_fn`` there sees what JAX's sees: every
+    rank gathers each parameter to its full shape, evaluates ``loss_fn``
+    on the global tokens, takes the gradients of the full leaves (their
+    norm is ``grad_norm``) and gives its own block of each to the
+    optimizer.  That costs every rank the whole loss, unsplit, and a full
+    copy of the parameters; the model's own loss splits the work."""
     sharded = None
     if mesh is not None and mesh.size() > 1:
-        if loss_fn is not None:
-            raise NotImplementedError("a sharded step computes the model's "
-                                      "own loss_fn on local blocks")
+        # refuses the layouts the step cannot split, whichever loss it runs
         sharded = _Sharded(model, cfg, mesh, rules)
+    if loss_fn is not None and sharded is not None:
+        return _full_loss_step(model, cfg, optimizer, loss_fn, mesh, rules)
     if loss_fn is None:
         kwargs = {} if attn_impl is None else {"attn_impl": attn_impl}
         if attn_impl in SEQUENCE_PARALLEL or sharded is not None:
@@ -332,6 +337,39 @@ def make_train_step(model: Any, cfg: Any, optimizer: ClippedAdamW,
         if sharded is not None:
             loss, norm = sharded.reduce(loss, grads)
         grad_norm = optimizer.update(params, grads, state["opt_state"], norm)
+        new_state = {"params": state["params"],
+                     "opt_state": state["opt_state"],
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+def _full_loss_step(model: Any, cfg: Any, optimizer: ClippedAdamW,
+                    loss_fn: Callable, mesh, rules: Optional[dict]):
+    """The step of a caller's ``loss_fn`` on a mesh: the loss of the full
+    parameters on the global tokens, on every rank alike, each rank
+    updating its own blocks (``make_train_step``)."""
+    specs = model.param_logical_specs(cfg)
+    whole = LocalShards(mesh, rules)  # no local dims: gathers every split
+    blocks = [to_partition_spec(s, rules) for s in tree_leaves(specs)]
+
+    def step(state: Dict, tokens: torch.Tensor):
+        if not isinstance(tree_leaves(state["params"])[0], DTensor):
+            raise ValueError("on a mesh the state must come from "
+                             "create_train_state(..., mesh=mesh)")
+        params = tree_map(local, state["params"])
+        with torch.no_grad():
+            full = tree_map(lambda t: t.detach().requires_grad_(True),
+                            whole.gather(params, specs))
+        leaves = tree_leaves(full)
+        loss = loss_fn(full, tokens)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(list(grads))))
+        mine = [local_block(g, spec, mesh) for g, spec in zip(grads, blocks)]
+        grad_norm = optimizer.update(params, mine, state["opt_state"], norm)
         new_state = {"params": state["params"],
                      "opt_state": state["opt_state"],
                      "step": state["step"] + 1}

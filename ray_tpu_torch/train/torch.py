@@ -6,10 +6,11 @@ join none.  The port's worker actors already join one in their ``setup``
 and set the variables a torch program reads (``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
 ``train/worker_group.py``).  So ``TorchTrainer`` is the
-``DataParallelTrainer`` whose group takes ``TorchConfig``'s backend and
-timeout; it forms no second group.  The group's address is the local
-host's: the port's clusters are one host.  ``prepare_model`` and
-``prepare_data_loader`` are the JAX package's.
+``DataParallelTrainer`` whose group takes ``TorchConfig``'s backend,
+timeout, address and port; it forms no second group.  The address
+defaults to this host's peer-routable one and the port to a free one, as
+the JAX package's.  ``prepare_model`` and ``prepare_data_loader`` are the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -24,9 +25,14 @@ from ray_tpu_torch.train.trainer import DataParallelTrainer
 @dataclass
 class TorchConfig:
     """The process group's backend (None: the worker group's, NCCL on GPUs
-    and gloo on the CPU) and its collectives' timeout."""
+    and gloo on the CPU), where it forms, and its collectives' timeout.
+    As in the JAX package, the port is reserved on the host that calls
+    ``fit()``, so rank 0 must run where it is also free; set both for
+    ranks on several hosts."""
 
     backend: Optional[str] = None
+    master_addr: Optional[str] = None  # default: this host's (worker_group)
+    master_port: Optional[int] = None  # default: a free port, at fit()
     timeout_s: float = 1800.0
 
 
@@ -60,7 +66,9 @@ class TorchTrainer(DataParallelTrainer):
                 "available; ScalingConfig(use_gpu=False) runs on the CPU")
         torch_config = torch_config or TorchConfig()
         self._group_options = {"backend": torch_config.backend,
-                               "timeout_s": torch_config.timeout_s}
+                               "timeout_s": torch_config.timeout_s,
+                               "master_addr": torch_config.master_addr,
+                               "master_port": torch_config.master_port}
 
 
 def prepare_model(model, parallel_strategy: str = "ddp"):

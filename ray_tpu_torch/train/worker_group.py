@@ -8,10 +8,11 @@ Each ``TrainWorker`` is an actor of the port's runtime pinned to its
 rank's bundle of one placement group (``ScalingConfig.bundle()``:
 ``{"CPU": 1, "GPU": 1}`` on the card, ``{"CPU": 1}`` with
 ``use_gpu=False``).  Its ``setup`` joins the ranks' ``torch.distributed``
-process group inside the actor, with an explicit
-``tcp://127.0.0.1:<free port>`` address, the world size and the rank
-(NCCL on the GPUs, gloo on the CPU, unless the group is given another
-backend), and sets the variables a torch program reads (``MASTER_ADDR``,
+process group inside the actor, with an explicit ``tcp://<addr>:<port>``
+address (by default this host's peer-routable address and a free port,
+as the JAX package's ``TorchConfig`` picks them), the world size and the
+rank (NCCL on the GPUs, gloo on the CPU, unless the group is given
+another backend), and sets the variables a torch program reads (``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``).  Under its
 grant an actor sees only its own card, so a worker's device is
 ``cuda:0`` within it.  The train function crosses to the actors by
@@ -41,8 +42,28 @@ SHUTDOWN_TIMEOUT_S = 5.0  # then the actors are killed
 
 def _free_port() -> int:
     with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
+        s.bind(("", 0))
         return s.getsockname()[1]
+
+
+def _default_master_addr() -> str:
+    """A peer-routable address for this host (loopback only as a last
+    resort: 127.0.0.1 can never bring together ranks on two hosts).  The
+    UDP ``connect`` sends nothing; it asks the kernel which interface
+    routes outward."""
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            s.connect(("8.8.8.8", 80))
+            return s.getsockname()[0]
+        finally:
+            s.close()
+    except OSError:
+        pass
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return "127.0.0.1"
 
 
 class TrainWorker:
@@ -145,18 +166,24 @@ class TrainWorker:
 class WorkerGroup:
     """Creates/destroys the gang; fans calls out to all ranks.  The
     process group takes ``backend`` (default: the scaling config's) and
-    ``timeout_s`` for its collectives."""
+    ``timeout_s`` for its collectives, and forms at ``master_addr``
+    (default: ``_default_master_addr()``) and ``master_port`` (default: a
+    free port, chosen at each ``start``)."""
 
     def __init__(self, scaling_config: ScalingConfig,
                  num_workers: Optional[int] = None,
                  backend: Optional[str] = None,
-                 timeout_s: float = SETUP_TIMEOUT_S):
+                 timeout_s: float = SETUP_TIMEOUT_S,
+                 master_addr: Optional[str] = None,
+                 master_port: Optional[int] = None):
         """num_workers overrides the config's size: the controller's
         elastic policy passes the per-attempt world size here."""
         self._config = scaling_config
         self._num_workers = num_workers or scaling_config.num_workers
         self._backend = backend or scaling_config.backend
         self._timeout_s = timeout_s
+        self._master_addr = master_addr
+        self._master_port = master_port
         self._pg = None
         self._workers: list[Any] = []
 
@@ -202,7 +229,8 @@ class WorkerGroup:
                 opts["resources"] = others
             self._workers.append(actor_cls.options(**opts).remote())
 
-        address = f"tcp://127.0.0.1:{_free_port()}"
+        address = (f"tcp://{self._master_addr or _default_master_addr()}:"
+                   f"{self._master_port or _free_port()}")
         setups = []
         for rank, w in enumerate(self._workers):
             shards = None

@@ -41,7 +41,6 @@ from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
 PHASES = ("data", "h2d", "compute", "checkpoint")
 BUCKETS = ("goodput", "compile", "data_stall", "checkpoint", "recovery",
            "idle")
-WARMUP_STEPS = 1  # steps excluded from steady-state throughput and MFU
 
 # ---------------------------------------------------------------------------
 # process-global metric instruments (created once; every tracker shares them,
@@ -143,7 +142,7 @@ class GoodputTracker:
     def __init__(self, run: str, tokens_per_step: int = 0,
                  flops_per_step: Optional[float] = None,
                  peak_tflops: Optional[float] = None,
-                 warmup_steps: int = WARMUP_STEPS,
+                 warmup_steps: Optional[int] = None,
                  export_metrics: bool = True):
         self.run = str(run)
         self.tokens_per_step = int(tokens_per_step)
@@ -151,7 +150,11 @@ class GoodputTracker:
         self.flops_source = "analytic" if flops_per_step is not None else None
         self.peak_tflops = (peak_tflops if peak_tflops is not None
                             else _peak_tflops())
-        self.warmup_steps = int(warmup_steps)
+        from ray_tpu_torch._private import flags
+
+        # steps excluded from steady-state throughput and MFU
+        self.warmup_steps = (int(flags.get("RTPU_GOODPUT_WARMUP"))
+                             if warmup_steps is None else int(warmup_steps))
         self._export = export_metrics
         self._t_start = time.perf_counter()
         self._wall_start = time.time()
@@ -166,8 +169,6 @@ class GoodputTracker:
         # recent per-step anatomy ring for percentile reporting
         self._recent: "deque[dict]" = deque(maxlen=512)
         self._closed = False
-        from ray_tpu_torch._private import flags
-
         self._flush_every = max(0.5, float(flags.get("RTPU_GOODPUT_FLUSH_S")))
         self._last_flush = 0.0
 

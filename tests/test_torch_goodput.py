@@ -165,9 +165,10 @@ def _steps_on_a_clock(mod, clock, **kw):
     """Four steps through ``mod``'s tracker on a hand-driven clock: the
     same wall times whatever the machine."""
     clock[0] = 100.0
+    kw.setdefault("warmup_steps", 1)
     gp = mod.GoodputTracker(run="gp-flag", tokens_per_step=256,
-                            flops_per_step=3.0e12, warmup_steps=1,
-                            export_metrics=False, **kw)
+                            flops_per_step=3.0e12, export_metrics=False,
+                            **kw)
     for i in range(4):
         with gp.step() as st:
             with st.phase("data"):
@@ -197,6 +198,29 @@ def test_the_peak_flag_sets_both_trackers_mfu(peak, monkeypatch):
     # an explicit peak still wins over the flag
     assert _steps_on_a_clock(goodput, clock, peak_tflops=2.0)[
         "peak_tflops"] == 2.0
+
+
+@pytest.mark.parametrize("warmup", [None, "0", "2"])
+def test_the_warmup_flag_sets_both_trackers_steady_state(warmup,
+                                                         monkeypatch):
+    """``RTPU_GOODPUT_WARMUP`` (default 1) is the warmup of both packages'
+    trackers where the caller gives none: the same steps give the same
+    steady-state throughput and MFU."""
+    from ray_tpu.util import goodput as jgoodput
+
+    if warmup is None:
+        monkeypatch.delenv("RTPU_GOODPUT_WARMUP", raising=False)
+    else:
+        monkeypatch.setenv("RTPU_GOODPUT_WARMUP", warmup)
+    monkeypatch.setenv("RTPU_GOODPUT_PEAK_TFLOPS", "100")  # defaults differ
+    clock = [0.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: clock[0])
+    ours = _steps_on_a_clock(goodput, clock, warmup_steps=None)
+    theirs = _steps_on_a_clock(jgoodput, clock, warmup_steps=None)
+    assert ours["warmup_steps"] == theirs["warmup_steps"] == int(
+        warmup or 1)
+    for key in ("tokens_per_sec_steady", "model_tflops_per_s", "mfu"):
+        assert ours[key] == theirs[key], key
 
 
 def test_the_peak_defaults_to_the_h100s(monkeypatch):

@@ -282,12 +282,16 @@ def test_cli_events_slo_and_top(port):
                for r in tstate.tsdb_overview(60.0))
 
 
-def test_check_raises_naming_the_roadmap_item(port):
+def test_check_reports_a_clean_tree(port, capsys):
+    """``check`` runs the port's static checker through the CLI."""
     _, node = port
     from ray_tpu_torch.scripts import cli
 
-    with pytest.raises(SystemExit, match="§1 item 6"):
+    with pytest.raises(SystemExit) as exit_:
         cli.main(["check"])
+    assert exit_.value.code == 0
+    out = capsys.readouterr().out
+    assert "0 violation(s)" in out and "6 pass(es)" in out
     assert tstate.list_data_jobs() == []
     out = _cli(node, "serve")
     assert "no serve deployments" in out

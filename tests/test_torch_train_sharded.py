@@ -4,8 +4,10 @@
 Three steps of the tiny Llama in f32 (``warmup_steps=1``, so the second and
 third updates move the parameters) from the same parameters and tokens, at
 the recipe's ``fsdp x tp`` structure, at ``dp x fsdp`` and at ``fsdp x sp``
-with ring attention: every rank's loss, grad norm and local block of every
-parameter against JAX's.
+with ring attention, and at ``fsdp x tp`` with a caller's ``loss_fn`` (the
+model's loss plus ``SQUARES_WEIGHT`` times the parameters' sum of squares):
+every rank's loss, grad norm and local block of every parameter against
+JAX's.
 
 One spawn runs every case; the children import torch and the port only and
 rendezvous through a ``FileStore`` under the test's temporary directory,
@@ -40,6 +42,7 @@ LOSS_TOL, NORM_RTOL, PARAM_TOL = 1e-5, 1e-5, 1e-5
 # these meshes, one or two entries of a leaf.  They are held to ADAM_TOL,
 # a third of one step's learning rate, and must stay a small share.
 ILL_CONDITIONED, ADAM_TOL, ILL_SHARE = 1e-6, 1e-4, 0.01
+SQUARES_WEIGHT = 1e-3  # the custom loss's penalty on the parameters
 AXES = ("dcn", "pp", "dp", "fsdp", "ep", "sp", "tp")
 
 
@@ -47,18 +50,22 @@ AXES = ("dcn", "pp", "dp", "fsdp", "ep", "sp", "tp")
 class Case:
     """A model on a mesh: its MeshConfig fields, the port's attn_impl and
     JAX's.  ``local_routing``: the MoE routes each rank's rows alone (a
-    negative control, held to the case without it)."""
+    negative control, held to the case without it).  ``custom_loss``: both
+    steps take ``loss_fn``, the model's loss plus the squares penalty."""
 
     model: str
     mesh: dict
     impl: str = "flash"
     jax_impl: str = "xla"
     local_routing: bool = False
+    custom_loss: bool = False
 
 
 CASES = {"fsdp2_tp2": Case("llama", dict(fsdp=2, tp=2)),
          "dp2_fsdp2": Case("llama", dict(dp=2, fsdp=2)),
-         "fsdp2_sp2": Case("llama", dict(fsdp=2, sp=2), "ring", "ring")}
+         "fsdp2_sp2": Case("llama", dict(fsdp=2, sp=2), "ring", "ring"),
+         "fsdp2_tp2/custom_loss": Case("llama", dict(fsdp=2, tp=2),
+                                       custom_loss=True)}
 
 
 CONFIGS = {"llama": "LlamaConfig", "gpt2": "GPT2Config", "moe": "MoEConfig"}
@@ -79,6 +86,15 @@ def _optimizer(step_mod):
 
 def _tokens():
     return np.random.default_rng(7).integers(0, 512, (4, 33))
+
+
+def _squares_loss(loss, leaves, square_sum):
+    """``loss(params, tokens)`` plus ``SQUARES_WEIGHT`` times the sum of
+    squares of ``leaves(params)``, in either package."""
+    def custom(params, tokens):
+        return loss(params, tokens) + SQUARES_WEIGHT * sum(
+            square_sum(p) for p in leaves(params))
+    return custom
 
 
 def _flatten(tree, prefix=""):
@@ -111,8 +127,15 @@ def _run_case(name, case, tokens):
     state = step.create_train_state(
         model, _config(case.model), opt, torch.Generator().manual_seed(0),
         "cpu", mesh=mesh)
+    loss_fn = None
+    if case.custom_loss:
+        cfg = _config(case.model)
+        loss_fn = _squares_loss(
+            lambda p, t: model.loss_fn(p, t, cfg, attn_impl=case.impl),
+            step.tree_leaves, lambda p: p.square().sum())
     run = step.make_train_step(model, _config(case.model), opt,
-                               attn_impl=case.impl, mesh=mesh)
+                               loss_fn=loss_fn, attn_impl=case.impl,
+                               mesh=mesh)
     route, global_logits, dropped = moe.route_logits, moe._global_logits, []
 
     def counted(cfg, logits):
@@ -212,6 +235,16 @@ def _jax_refs(cases):
         for name, case in cases.items():
             if case.model != model or case.local_routing:
                 continue
+            loss_fn = None
+            if case.custom_loss:
+                loss_fn = _squares_loss(
+                    lambda p, t: jmod.loss_fn(p, t, jcfg,
+                                              attn_impl=case.jax_impl),
+                    jax.tree.leaves, lambda p: jnp.sum(jnp.square(p)))
+                grads = jax.jit(jax.grad(lambda p: loss_fn(p, tokens)))(
+                    jax.tree.map(jnp.asarray, params))
+                refs[f"{name}/grad"] = _flatten(
+                    jax.tree.map(np.asarray, grads))
             mesh = create_mesh(MeshConfig(**case.mesh),
                                devices=jax.devices()[:WORLD])
             opt = _optimizer(jstep)
@@ -222,6 +255,7 @@ def _jax_refs(cases):
                 state = {"params": p, "opt_state": opt.init(p),
                          "step": jnp.zeros((), jnp.int32)}
                 run = jstep.make_train_step(jmod, jcfg, mesh, opt,
+                                            loss_fn=loss_fn,
                                             attn_impl=case.jax_impl,
                                             donate=False)
                 for i in range(STEPS):
@@ -297,6 +331,7 @@ def check_case(refs, results, name, case):
     shape = [case.mesh.get(a, 1) for a in AXES]
     specs = _flatten(jmod.param_logical_specs(jcfg))
     moved, ill, total = 0.0, 0, 0
+    first_grad = refs.get(f"{name}/grad", refs[f"{case.model}/grad"])
     for r, res in enumerate(results):
         for i in range(STEPS):
             loss, norm = refs[f"{name}/{i}"]
@@ -312,8 +347,7 @@ def check_case(refs, results, name, case):
             got = res[f"{name}/params/{key}"]
             want = _block(want, spec, coords)
             assert got.shape == want.shape, (r, key)
-            grad = np.abs(_block(refs[f"{case.model}/grad"][key], spec,
-                                 coords))
+            grad = np.abs(_block(first_grad[key], spec, coords))
             diff = np.abs(got - want)
             soft = (grad < ILL_CONDITIONED) & (grad > 0)
             assert diff[~soft].max() < PARAM_TOL, (r, key)

@@ -160,13 +160,48 @@ def fitted(tmp_path_factory):
 def test_torch_trainer_sets_the_torch_environment(fitted):
     result, recs = fitted
     assert result.metrics == {"rank": 0, "steps": 4}
+    from ray_tpu.train.torch import _default_master_addr
+
     ports = {rec["MASTER_PORT"] for rec in recs}
     assert len(ports) == 1 and int(ports.pop()) > 0
     for r, rec in enumerate(recs):
-        assert rec["MASTER_ADDR"] == "127.0.0.1"
+        # TorchConfig's default address is the JAX package's
+        assert rec["MASTER_ADDR"] == _default_master_addr()
         assert (rec["RANK"], rec["LOCAL_RANK"], rec["WORLD_SIZE"]) == (
             str(r), str(r), str(WORKERS))
         assert rec["backend"] == "gloo"
+
+
+def _env_loop(config):
+    """Every rank writes the group's address and its rank, as a torch
+    program reads them, into ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    rec = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT")}
+    rec["rank"] = dist.get_rank()
+    with open(os.path.join(config["out"], f"rank{rec['rank']}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def test_torch_config_address_and_port_reach_every_rank(tmp_path):
+    """``TorchConfig(master_addr=..., master_port=...)``, the JAX
+    package's fields, is where the ranks' group forms."""
+    from ray_tpu_torch.train.worker_group import _free_port
+
+    port = _free_port()
+    result = train.TorchTrainer(
+        _env_loop, train_loop_config={"out": str(tmp_path)},
+        torch_config=train.TorchConfig(backend="gloo", timeout_s=120,
+                                       master_addr="127.0.0.1",
+                                       master_port=port),
+        scaling_config=ScalingConfig(num_workers=WORKERS, use_gpu=False),
+        run_config=RunConfig(name="env", storage_path=str(tmp_path))).fit()
+    assert result.error is None, result.error
+    for r in range(WORKERS):
+        with open(tmp_path / f"rank{r}.json") as f:
+            assert json.load(f) == {"MASTER_ADDR": "127.0.0.1",
+                                    "MASTER_PORT": str(port), "rank": r}
 
 
 def test_prepare_model_ddp_gradient_is_the_full_batch_gradient(fitted):
