@@ -10,8 +10,8 @@ Phases, each fatal on failure:
      counts and the child's wall and CPU time printed;
   1. card: print the card's name and power limit; build the kernels from
      the sources in ``ray_tpu_torch/ops/csrc`` (one nvcc per source, in
-     parallel) and print ptxas's registers and spills for each
-     tensor-core kernel;
+     parallel, the runtime's native binaries built with g++ beside them)
+     and print ptxas's registers and spills for each tensor-core kernel;
   2. kernels against their plain versions on the card, in bf16 (the
      tensor-core forward, dK/dV and dQ kernels) and f32 (the scalar
      kernels), at the shapes the main paths give them (the forward at
@@ -25,6 +25,7 @@ Phases, each fatal on failure:
   4. ``llama.apply`` at ``__graft_entry__.entry()``'s config: logits through
      the kernel against logits through the plain attention;
   5. the serving engine at full width (the serving model of ``bench.py``):
+     3 unloaded requests, 3 more for phase 6's C++ client, then the mix;
      every request streams its full token count, the forward kernel's
      launch counter grew during the run, and one prefill's first-token
      logits through the kernel agree with the same prefill through the
@@ -42,7 +43,15 @@ Phases, each fatal on failure:
      phase 5's 3 unloaded requests with the same greedy ids, bit for bit,
      and its 19-request mix by concurrent actor calls, every request full,
      the forward kernel launched in the actor's process (its tok/s against
-     phase 5's, a no-op call's and a request's call overhead); the actor's
+     phase 5's, a no-op call's and a request's call overhead); the C++
+     worker API (``ray_tpu_torch/cpp/``, built with g++ in the background
+     from the phase's start): its ``demo`` against a named ``CppDemo``
+     actor (KV, nodes, calls, Put/Get both ways), and its ``generate``
+     against the named engine actor with 3 fresh prompts whose greedy ids
+     equal phase 5's in-process ids for them, the actor's forward launches
+     rising across the C++ requests, a bf16 CUDA tensor read in C++ with
+     the checksum the actor took of it, and a C++ call's p50 beside the
+     Python no-op call's, the part held to ``CPP_PART_S``; the actor's
      device-memory gauges read from the scheduler's ``metrics_snapshot``
      after its flusher's push, equal to its own ``memory_stats()``, and
      its kernel-build counters; a 64 MB bf16 device object
@@ -991,6 +1000,9 @@ def drain(req, timeout=300):
 # request 0's first 112 tokens (MIX_SHARED) and is submitted once request 0
 # has its first token, so the prefix-cache suffix prefill runs
 UNLOADED = [(2000 + i, 128, 4) for i in range(3)]
+# three more, served one at a time after UNLOADED: run_runtime (c) sends
+# them from C++ to the engine actor and holds its ids to these
+CPP_UNLOADED = [(2100 + i, 128, 4) for i in range(3)]
 MIX = ([(i, 128, 32, 0.0, None) for i in range(16)]
        + [(100, 600, 32, 0.0, None), (101, 128, 32, 0.8, 7)])
 MIX_SHARED = (0, 112, 102, 16, 32)  # (of seed, its tokens, seed, tokens, max)
@@ -1029,6 +1041,8 @@ def run_engine(report):
                 raise SystemExit("unloaded request streamed short")
             unloaded_ids.append(ids)
             ttfts.append(r.first_token_at - r.submitted_at)
+        cpp_ids = [engine.generate(prompt(seed, n), SamplingParams(
+            max_tokens=max_tokens)) for seed, n, max_tokens in CPP_UNLOADED]
 
         t0 = time.monotonic()
         reqs = [(engine.submit(prompt(seed, n), SamplingParams(
@@ -1085,7 +1099,7 @@ def run_engine(report):
     res = {"requests": len(reqs), "tokens": n_tokens, "wall_s": wall,
            "output_tok_s": n_tokens / wall,
            "ttft_unloaded_ms": sorted(t * 1e3 for t in ttfts),
-           "unloaded_ids": unloaded_ids,
+           "unloaded_ids": unloaded_ids, "cpp_ids": cpp_ids,
            "flash_launches": launches, "prefills": prefills,
            "launches_per_prefill": launches / max(prefills, 1),
            "prefix_hit_tokens": hit,
@@ -1169,6 +1183,11 @@ RUNTIME_TIMEOUT_S = 600
 # (e): the gauge pushed by the engine actor's flusher may trail its own
 # reading by one allocation of the allocator's smallest block
 RUNTIME_GAUGE_SLACK = 1 << 20
+# (c)'s C++ part: its limit in seconds from the Python requests' end (the
+# wait for the build included), the engine actor's name, the C++ pings
+CPP_PART_S = 15.0
+CPP_ENGINE = "runtime-engine"
+CPP_PINGS = 100
 
 
 def byte_checksum(t):
@@ -1264,6 +1283,22 @@ class RuntimeEngineActor:
         return {"ids": ids, "engine_s": done - r.submitted_at,
                 "ttft_s": r.first_token_at - r.submitted_at}
 
+    def embed(self, ids):
+        """The serving model's embedding rows of ``ids``: a bf16 CUDA
+        tensor, which a caller in another process gets as bytes copied
+        from the card; its dtype, shape and checksum are kept for
+        ``embedded``."""
+        import torch
+
+        t = self.engine.state["embed"][torch.tensor(ids, device="cuda")]
+        self.embedded_last = {"dtype": str(t.dtype).rsplit(".", 1)[-1],
+                              "shape": list(t.shape),
+                              "sums": byte_checksum(t)}
+        return t
+
+    def embedded(self):
+        return self.embedded_last
+
     def stop_engine(self):
         import torch
 
@@ -1352,6 +1387,165 @@ class RuntimeConsumer:
                 "numel": out.numel(), "pid": os.getpid()}
 
 
+class CppDemo:
+    """(c): the actor ``ray_tpu_torch/cpp/examples/demo.cc`` calls, as in
+    ``tests/test_cpp_api.py``."""
+
+    def echo(self, x):
+        return x + 1
+
+    def concat(self, a, b):
+        return f"{a}:{b}"
+
+    def stats(self, xs):
+        return {"n": len(xs), "sum": sum(xs)}
+
+    def roundtrip(self, d):
+        return {"f": d["f"] * 2, "b": d["b"], "none": d["none"]}
+
+    def boom(self):
+        raise ValueError("from python")
+
+
+def build_native_in_background():
+    """Start g++ on the port runtime's native binaries (the store, the GCS,
+    the channel and ``_rtpu_core``), one thread each, so they build beside
+    the kernels' nvcc instead of inside ``run_runtime``'s first
+    ``init()``; returns the threads and the dict they fill (each binary's
+    seconds, or its error)."""
+    import threading
+
+    from ray_tpu_torch.native import build as native_build
+
+    out = {}
+
+    def work(name):
+        t0 = time.monotonic()
+        try:
+            native_build.binary_path(name)
+        except Exception as e:  # noqa: BLE001  (raised by main)
+            out[name] = e
+            return
+        out[name] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=work, args=(name,), daemon=True,
+                                name=f"native-build-{name}")
+               for name in native_build._BINARIES]
+    for thread in threads:
+        thread.start()
+    return threads, out
+
+
+def build_cpp_in_background():
+    """Start building the C++ client's ``demo`` and ``generate`` on a
+    thread; returns the thread and the dict it fills (``paths`` or
+    ``error``, and the build's seconds ``s``)."""
+    import threading
+
+    from ray_tpu_torch.cpp import build as cpp_build
+
+    out = {}
+
+    def work():
+        t0 = time.monotonic()
+        try:
+            out["paths"] = cpp_build.build("demo", "generate")
+        except Exception as e:  # noqa: BLE001  (raised by run_cpp_client)
+            out["error"] = e
+        out["s"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=work, name="cpp-build", daemon=True)
+    thread.start()
+    return thread, out
+
+
+def run_cpp_client(node, actor, demo_actor, cpp, want_ids, python_call_ms):
+    """(c)'s C++ part: ``demo`` against ``CppDemo``, then ``generate``
+    against the engine actor with ``CPP_UNLOADED``'s prompts, its ids held
+    to ``want_ids`` (run_engine's, in process)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.core.object_ref import ObjectRef
+
+    t0 = time.monotonic()
+    thread, built = cpp
+    thread.join()
+    if "error" in built:
+        raise SystemExit(f"the C++ client did not build: {built['error']}")
+    paths = built["paths"]
+    gcs = node.gcs_address
+    ctx = global_worker()
+
+    def kv_put(key, value):
+        ctx.rpc("kv_put", {"namespace": "cppdemo", "key": key,
+                           "value": value})
+
+    def kv_get(key):
+        return ctx.rpc("kv_get", {"namespace": "cppdemo", "key": key})
+
+    rt.get(demo_actor.echo.remote(0), timeout=RUNTIME_TIMEOUT_S)
+    kv_put(b"py_oid", rt.put({"from": "python", "n": 7}).binary())
+    demo = subprocess.run([paths["demo"], gcs, "cppdemo"],
+                          capture_output=True, text=True, timeout=60)
+    if (demo.returncode != 0 or "DEMO-OK nodes=1 actor=CppDemo"
+            not in demo.stdout or "CROSS-LANG-OK" not in demo.stdout):
+        raise SystemExit(f"the C++ demo failed: rc {demo.returncode}, "
+                         f"{demo.stdout!r}, {demo.stderr!r}")
+    if kv_get(b"greeting") != b"hello-from-cpp":
+        raise SystemExit("the C++ demo's KV write is not seen in Python")
+    obj = rt.get(ObjectRef(kv_get(b"oid")), timeout=RUNTIME_TIMEOUT_S)
+    if obj != {"kind": "cpp-object", "squares": [0, 1, 4, 9, 16]}:
+        raise SystemExit(f"the C++ demo's object reads {obj!r} in Python")
+
+    vocab = 32_000
+    n = len(CPP_UNLOADED)
+    before = rt.get(actor.launches.remote(), timeout=RUNTIME_TIMEOUT_S)
+    gen = subprocess.run(
+        [paths["generate"], gcs, CPP_ENGINE, str(CPP_UNLOADED[0][2]),
+         *(",".join(map(str, mix_prompt(seed, n_tok, vocab)))
+           for seed, n_tok, _ in CPP_UNLOADED),
+         "--tensor", "embed", "--pings", str(CPP_PINGS)],
+        capture_output=True, text=True, timeout=120)
+    after = rt.get(actor.launches.remote(), timeout=RUNTIME_TIMEOUT_S)
+    if gen.returncode != 0:
+        raise SystemExit(f"the C++ generate failed: rc {gen.returncode}, "
+                         f"{gen.stdout!r}, {gen.stderr!r}")
+    lines = [json.loads(line) for line in gen.stdout.splitlines()]
+    ids = [line["ids"] for line in lines[:n]]
+    tensor, call_ms = lines[n]["tensor"], lines[n + 1]["ping_ms"]
+    if ids != want_ids:
+        raise SystemExit(f"the C++ requests' ids {ids} differ from "
+                         f"run_engine's {want_ids}")
+    if after <= before:
+        raise SystemExit(f"the engine actor's forward launches did not rise "
+                         f"across the C++ requests ({before} -> {after})")
+    held = rt.get(actor.embedded.remote(), timeout=RUNTIME_TIMEOUT_S)
+    if (held["dtype"] != "bfloat16" or held["shape"] != [len(ids[0]), 768]
+            or {k: tensor[k] for k in held} != held):
+        raise SystemExit(f"the bf16 tensor read in C++ differs: {tensor} "
+                         f"against the actor's {held}")
+    sums = held["sums"]
+    secs = time.monotonic() - t0
+    out = {"build_s": built["s"], "part_s": secs, "part_limit_s": CPP_PART_S,
+           "demo": demo.stdout.strip().splitlines()[-1], "ids_equal": True,
+           "launches_before": before, "launches_after": after,
+           "tensor": tensor, "call_ms": call_ms,
+           "python_noop_call_ms_p50": python_call_ms}
+    print(f"runtime C++ client: demo and generate built in "
+          f"{built['s']:.2f} s (g++, in the background from the phase's "
+          f"start); {out['demo']}; {n} requests from C++, ids equal "
+          f"run_engine's; forward launches in the actor {before} -> "
+          f"{after}; a bf16 {tensor['shape']} CUDA tensor read in C++, "
+          f"checksum equal {sums}; C++ call p50 {call_ms['p50']:.4f} ms, "
+          f"p90 {call_ms['p90']:.4f} ms against Python's no-op call p50 "
+          f"{python_call_ms:.4f} ms; the part {secs:.2f} s (limit "
+          f"{CPP_PART_S:.0f} s)", flush=True)
+    if secs > CPP_PART_S:
+        raise SystemExit(f"the C++ part took {secs:.2f} s, over its "
+                         f"{CPP_PART_S:.0f} s")
+    return out
+
+
 def run_runtime(report):
     """Phase 6: the port's runtime on the card (after run_engine, whose
     ids and tok/s it is held to)."""
@@ -1371,6 +1565,7 @@ def run_runtime(report):
 
     res = {}
     t_phase = time.monotonic()
+    cpp = build_cpp_in_background()  # joined in (c)
     # (a) the runtime: the node counts the card
     node = rt.init(num_cpus=8, object_store_memory=RUNTIME_STORE_BYTES)
     try:
@@ -1457,7 +1652,8 @@ def run_runtime(report):
         # (c) an actor holding the card serves run_engine's requests
         Engine = rt.remote(num_gpus=1, max_concurrency=32)(
             RuntimeEngineActor)
-        actor = Engine.remote()
+        actor = Engine.options(name=CPP_ENGINE).remote()
+        demo_actor = rt.remote(CppDemo).options(name="cppdemo").remote()
         rt.get(actor.ping.remote(), timeout=RUNTIME_TIMEOUT_S)
         calls = []
         for _ in range(RUNTIME_NOOP_CALLS):
@@ -1513,6 +1709,10 @@ def run_runtime(report):
               f"{len(outs)} requests, {n_tok} tokens in {wall:.3f} s = "
               f"{n_tok / wall:.1f} output tok/s ({ratio:.4f} of run_engine's);"
               f" forward launches in the actor {launches}", flush=True)
+        res["cpp"] = run_cpp_client(
+            node, actor, demo_actor, cpp, report["engine"]["cpp_ids"],
+            res["actor"]["noop_call_ms"]["p50"])
+        rt.kill(demo_actor)
 
         parts_s["c"] = time.monotonic() - t_phase
         # (e) device telemetry of the engine actor, through the scheduler
@@ -1605,7 +1805,11 @@ def run_runtime(report):
         rt.shutdown()
     res["phase_s"] = time.monotonic() - t_phase
     report["runtime"] = res
-    return res["actor"]["flash_launches"]
+    # the forward's launches in the engine actor: the Python callers'
+    # requests, and the C++ ones'
+    return {"runtime": res["actor"]["flash_launches"],
+            "runtime_cpp": (res["cpp"]["launches_after"]
+                            - res["cpp"]["launches_before"])}
 
 
 class Handle:
@@ -7762,9 +7966,21 @@ def main() -> int:
     print(f"card: {report['card']}", flush=True)
     run_check(report)
     t0 = time.monotonic()
+    native_threads, native = build_native_in_background()
     paths = _build.build(["flash_fwd", "flash_bwd"])
     report["build_s"] = time.monotonic() - t0
     print(f"built {sorted(paths)} in {report['build_s']:.1f} s", flush=True)
+    for thread in native_threads:
+        thread.join()
+    failed = {k: v for k, v in native.items() if isinstance(v, Exception)}
+    if failed:
+        raise SystemExit(f"the runtime's native build failed: {failed}")
+    each = {k: round(v, 2) for k, v in native.items()}
+    report["native_build_s"] = {"each": each,
+                                "wall": time.monotonic() - t0}
+    print(f"built the runtime's native binaries beside them: {each} s, "
+          f"{report['native_build_s']['wall']:.1f} s from the kernels' "
+          f"start", flush=True)
     for name, path in paths.items():
         log = path.with_name(path.name + ".log")
         info = ptxas_report(log.read_text()) if log.exists() else {}
@@ -7821,7 +8037,7 @@ def main() -> int:
                    "llama3_trainer": llama3_launches[name]}
         if name == "flash_fwd":
             by_path = {"engine": engine_launches,
-                       "runtime": runtime_launches,
+                       **runtime_launches,
                        "frontends": frontend_launches,
                        "serve_bench": serve_launches,
                        "serve": serve_runtime_launches,

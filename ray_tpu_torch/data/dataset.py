@@ -10,10 +10,11 @@ coordinator actor (``data/split.py``).
 
 Blocks are ``{column: ndarray}`` (``data/block.py``), so ``schema()`` is
 ``{column: (dtype, trailing shape)}`` where the JAX package returns a
-pyarrow schema.  ``iter_jax_batches`` and the TensorFlow paths raise: the
-port imports neither JAX nor tensorflow.  ``to_pandas`` and ``to_arrow``
-import pyarrow when called, and so do the Parquet and CSV writes; the
-``write_*`` methods write one file a block (``datasource.make_write_fn``).
+pyarrow schema.  ``iter_jax_batches`` raises: the port imports no JAX.
+``iter_tf_batches`` and ``to_tf`` import tensorflow when called (the
+card's host has none), ``to_pandas`` and ``to_arrow`` pyarrow, and so do
+the Parquet and CSV writes; the ``write_*`` methods write one file a
+block (``datasource.make_write_fn``).
 """
 
 from __future__ import annotations

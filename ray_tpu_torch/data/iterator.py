@@ -266,12 +266,72 @@ class DataIterator:
         raise NotImplementedError(
             "iter_jax_batches: the port has no JAX; use iter_torch_batches")
 
-    def iter_tf_batches(self, **kw):
-        raise ImportError("iter_tf_batches needs tensorflow, which neither "
-                          "image has")
+    @staticmethod
+    def _densify(v):
+        """Object columns (variable-length lists) -> stacked dense arrays
+        (tf rejects object dtype)."""
+        arr = np.asarray(v)
+        if arr.dtype == object:
+            try:
+                return np.stack([np.asarray(x) for x in arr])
+            except ValueError:
+                return arr  # genuinely ragged: caller's problem
+        return arr
 
-    def to_tf(self, feature_columns, label_columns, **kw):
-        raise ImportError("to_tf needs tensorflow, which neither image has")
+    def iter_tf_batches(self, *, batch_size: Optional[int] = 256,
+                        **kw) -> Iterator[Any]:
+        """numpy batches as dicts of tf.Tensors (Ray's
+        iterator.iter_tf_batches).  tensorflow is imported here, on the
+        call: the card's host has none, and the data package imports it
+        nowhere else."""
+        import tensorflow as tf
+
+        for batch in self.iter_batches(batch_size=batch_size,
+                                       batch_format="numpy", **kw):
+            yield {k: tf.convert_to_tensor(self._densify(v))
+                   for k, v in batch.items()}
+
+    def to_tf(self, feature_columns, label_columns, *,
+              batch_size: int = 256, **kw):
+        """A tf.data.Dataset of (features, labels) (Ray's dataset.to_tf).
+        Column args may be a name or a list of names; the signature comes
+        from a probe batch of two rows."""
+        import tensorflow as tf
+
+        feats = ([feature_columns] if isinstance(feature_columns, str)
+                 else list(feature_columns))
+        labels = ([label_columns] if isinstance(label_columns, str)
+                  else list(label_columns))
+
+        def pick(batch, cols):
+            if len(cols) == 1:
+                return self._densify(batch[cols[0]])
+            return {c: self._densify(batch[c]) for c in cols}
+
+        try:
+            probe = next(iter(self.iter_batches(
+                batch_size=2, batch_format="numpy", **kw)))
+        except StopIteration:
+            raise ValueError(
+                "to_tf: dataset is empty (no batches to infer the "
+                "tf.TensorSpec from)") from None
+        probe = {k: self._densify(v) for k, v in probe.items()}
+
+        def spec_of(cols):
+            if len(cols) == 1:
+                v = probe[cols[0]]
+                return tf.TensorSpec(
+                    shape=(None,) + v.shape[1:], dtype=v.dtype)
+            return {c: tf.TensorSpec(shape=(None,) + probe[c].shape[1:],
+                                     dtype=probe[c].dtype) for c in cols}
+
+        def gen():
+            for batch in self.iter_batches(batch_size=batch_size,
+                                           batch_format="numpy", **kw):
+                yield pick(batch, feats), pick(batch, labels)
+
+        return tf.data.Dataset.from_generator(
+            gen, output_signature=(spec_of(feats), spec_of(labels)))
 
     def materialize(self):
         from ray_tpu_torch.data import logical as L

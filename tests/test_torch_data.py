@@ -36,8 +36,7 @@ TIMEOUT = 120
 LATER = set()
 
 # the functions of the data package that may import pyarrow, pandas or PIL
-# (the readers and writes of the formats that need them), by file; nothing
-# in the package imports tensorflow
+# (the readers and writes of the formats that need them), by file
 LIBRARY_IMPORTS = {
     "__init__.py": {"from_pandas"},
     "block.py": {"from_arrow", "to_arrow"},
@@ -48,6 +47,8 @@ LIBRARY_IMPORTS = {
     "delta_sharing.py": {"_fetch_parquet"},
     "video.py": {"_decode_frame"},
 }
+# the functions that may import tensorflow: the TF feed's two
+TF_IMPORTS = {"iterator.py": {"iter_tf_batches", "to_tf"}}
 
 # the executor's metric families: "data_op_" + each suffix
 METRIC_SUFFIXES = ("rows_total", "output_bytes_total", "tasks_total",
@@ -130,22 +131,28 @@ def _imports_by_function(tree):
 def test_nothing_in_the_data_package_imports_pyarrow():
     """pyarrow, pandas and PIL are imported only inside the functions of
     ``LIBRARY_IMPORTS`` (the card's host has none of them), never at a
-    module's level; tensorflow nowhere."""
+    module's level; tensorflow only inside the TF feed's two functions
+    (``TF_IMPORTS``)."""
     import pathlib
 
     import ray_tpu_torch.data
 
     root = pathlib.Path(ray_tpu_torch.data.__file__).parent
-    seen = set()
+    seen, seen_tf = set(), set()
     for path in root.glob("*.py"):
         allowed = LIBRARY_IMPORTS.get(path.name, set())
         for scope, pkg in _imports_by_function(ast.parse(path.read_text())):
-            assert pkg != "tensorflow", (path, scope)
+            if pkg == "tensorflow":
+                assert scope in TF_IMPORTS.get(path.name, set()), \
+                    (path, scope)
+                seen_tf.add((path.name, scope))
             if pkg in ("pyarrow", "pandas", "PIL"):
                 assert scope in allowed, (path, scope, pkg)
                 seen.add((path.name, scope))
     assert seen == {(f, s) for f, names in LIBRARY_IMPORTS.items()
                     for s in names}
+    assert seen_tf == {(f, s) for f, names in TF_IMPORTS.items()
+                       for s in names}
 
 
 SCENARIOS = {}
@@ -783,5 +790,54 @@ def test_unported_paths_raise_with_their_reason(port):
     ds = data.range(4)
     with pytest.raises(NotImplementedError, match="JAX"):
         ds.iter_jax_batches()
-    with pytest.raises(ImportError, match="tensorflow"):
-        ds.iter_tf_batches()
+
+
+def _tf_feed(data, feature_columns):
+    """``tests/test_tf_and_accelerators.py``'s case on ``data``'s package:
+    its items, its batches and its ``to_tf`` dataset, read back as numpy."""
+    import tensorflow as tf
+
+    ds = data.from_items([
+        {"x": np.array([float(i), float(2 * i)], np.float32),
+         "y": float(3 * i)} for i in range(16)])
+    batches = list(ds.iter_tf_batches(batch_size=8))
+    assert len(batches) >= 2
+    assert batches[0]["x"].shape[1] == 2
+    assert batches[0]["x"].dtype == tf.float32
+    tfds = ds.to_tf(feature_columns, "y", batch_size=8)
+    feats, labels = next(iter(tfds))
+    x = feats if feature_columns == "x" else feats["x"]
+    assert x.shape[1] == 2 and labels.shape[0] == x.shape[0]
+    pairs = [(tf.nest.map_structure(lambda t: t.numpy(), f), lab.numpy())
+             for f, lab in tfds]
+    assert sum(int(lab.shape[0]) for _, lab in pairs) == 16
+    return ([{k: (t.dtype.name, t.numpy()) for k, t in b.items()}
+             for b in batches], repr(tfds.element_spec), pairs)
+
+
+@pytest.mark.parametrize("feature_columns", ["x", ["x", "y"]])
+def test_tf_batches_and_to_tf_agree_with_jax(feature_columns, ray_cluster,
+                                             port):
+    """The TF feed of each package on the same items gives the same tf
+    batches (dtypes and values), the same ``to_tf`` signature and the same
+    (features, labels), batch for batch."""
+    pytest.importorskip("tensorflow")
+    import ray_tpu.data
+    import ray_tpu_torch.data
+
+    want = _tf_feed(ray_tpu.data, feature_columns)
+    got = _tf_feed(ray_tpu_torch.data, feature_columns)
+    assert got[1] == want[1]
+    for g, w in zip(got[0], want[0], strict=True):
+        assert g.keys() == w.keys()
+        for k in g:
+            assert g[k][0] == w[k][0], k
+            np.testing.assert_array_equal(g[k][1], w[k][1])
+    for (gf, gl), (wf, wl) in zip(got[2], want[2], strict=True):
+        if isinstance(wf, dict):
+            assert gf.keys() == wf.keys()
+            for k in wf:
+                np.testing.assert_array_equal(gf[k], wf[k])
+        else:
+            np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_array_equal(gl, wl)

@@ -129,6 +129,38 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert bad == []
 
 
+def test_the_cpp_client_includes_nothing_of_jax_or_ray_tpu():
+    """Every quoted ``#include`` under ``ray_tpu_torch/cpp/`` resolves,
+    from the including file's directory or the builder's ``-I``
+    directories, to a file of ``ray_tpu_torch/``; those directories are
+    all the port's; and no source names JAX or the JAX package."""
+    import re
+
+    from ray_tpu_torch.cpp import build
+
+    port = ROOT / "ray_tpu_torch"
+    dirs = [pathlib.Path(d).resolve() for d in build.INCLUDE_DIRS]
+    assert dirs and all(d.is_relative_to(port) and d.is_dir() for d in dirs)
+    assert build.include_flags() == [f"-I{d}" for d in build.INCLUDE_DIRS]
+    files = sorted(p for p in (port / "cpp").rglob("*")
+                   if p.suffix in (".h", ".cc"))
+    assert {p.name for p in files} >= {"client.h", "client.cc", "demo.cc",
+                                       "generate.cc"}
+    resolved = set()
+    for f in files:
+        text = f.read_text()
+        assert not re.search(r"jax|ray_tpu(?!_torch)", text, re.I), f
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            hits = [d / name for d in [f.parent, *dirs]
+                    if (d / name).is_file()]
+            assert hits, (f.name, name)
+            target = hits[0].resolve()
+            assert target.is_relative_to(port), (f.name, name, target)
+            resolved.add(target.relative_to(port).as_posix())
+    assert resolved == {"native/wire.h",
+                        "cpp/include/ray_tpu_torch/client.h"}
+
+
 def test_entry_points_raise_without_a_gpu(model):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
