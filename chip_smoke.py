@@ -75,10 +75,11 @@ Phases, each fatal on failure:
      GB/s and seal and hydrate ms;
   8. routed serving at the serving width (``run_serve_bench``): two
      engines behind the pow-2 and prefix-aware routers under
-     ``_private/serve_bench.py``'s load-wall ladder (4:128 and 32:512:
-     the reference's top rung cut to half its requests, its middle rung
-     left out for time), then its
-     kill rung with the KV tier off and on: every request of every cell
+     ``_private/serve_bench.py``'s load-wall ladder (4:128 and 32:256:
+     the reference's top rung cut to a quarter of its requests, its middle
+     rung left out for time), then its
+     kill rung with the KV tier off and on (96 requests a cell, the
+     reference's 192 cut for time): every request of every cell
      completes without an error, the top rung evicts pages under both
      policies, prefix-aware saves prefill tokens, copies COW pages and
      hits more than pow-2, the tier-on kill cell pulls, and the forward
@@ -114,6 +115,18 @@ Phases, each fatal on failure:
      are timed and profiled; the profiled step shows 12 launches of each
      tensor-core kernel (``BF16_KERNELS``) and none of the scalar ones
      (``SCALAR_KERNELS``): the bf16 path runs no scalar kernel;
+ 9b. the sharded step under rules tables that need a product of mesh axes
+     or a data axis (``run_sharded_layouts``): phase 9's GPT-2 124M, batch
+     12 x seq 1024, on 4 spawned ranks of the one card (gloo through a
+     ``FileStore``: NCCL refuses two ranks on one device; each rank first
+     checks that gloo takes its CUDA tensors for all-gather and
+     all-reduce), two steps under each of ``LAYOUTS``: the sequence over
+     sp and tp (dense attention over the gathered sequence), the MLP over
+     the data axis dp, the MLP over the product of ep and tp; every rank's
+     losses and grad norms against the same two steps at world size 1 in
+     this process (``LAYOUT_LOSS_TOL``, ``LAYOUT_NORM_RTOL``), each kernel
+     launched 12 times a step in every rank; step ms and peak memory by
+     rank;
  10. the user's train loop (``run_torch_trainer``): ``TorchTrainer`` with
      one NCCL GPU worker, an actor of the port's runtime in a ``{"CPU": 1,
      "GPU": 1}`` placement-group bundle, over ``from_numpy`` int32 token
@@ -228,9 +241,9 @@ Phases, each fatal on failure:
      ids equal to the in-process engine's first ids;
  10g. the runtime's benchmarks on the card's host (``run_core_bench``),
      each through its entry point in a child process with a cluster or
-     store daemon of its own: ``rtpu microbenchmark`` (its ten task,
-     actor-call and put rates, its record written under
-     ``chiprun_out/``), ``store_bench --reps 2`` (the store's eight put
+     store daemon of its own: ``rtpu microbenchmark --reps 2`` (its ten
+     task, actor-call and put rates, its record written under
+     ``chiprun_out/``), ``store_bench --reps 1`` (the store's eight put
      and get rates at 1KB and 10MB, one client and four),
      ``data_bench --images 256`` (the data service at one and four splits
      against four private pipelines, images/s, cache hits, failovers) and
@@ -2449,6 +2462,9 @@ SERVE_PROFILE_S = 2.0
 SERVE_LADDER = ((4, 128), (32, 256))
 # the profiled rerun of the top prefix-aware cell runs 1/4 of its requests
 SERVE_PROFILED_SHARE = 4
+# The kill rung's requests in each of its two cells: the reference's 192
+# cut to 96 for the script's time (the two cells took 12.5 s at 192)
+SERVE_KILL_REQUESTS = 96
 
 
 def serving_model():
@@ -2563,7 +2579,8 @@ def run_serve_bench(report):
     lm.prefill, lm.prefill_with_prefix = counted("kernel"), counted("suffix")
     attention.flash_forward.launches = 0
     try:
-        res = sb.run(model, SERVE_LADDER, SERVE_BENCH_SEED, "cuda")
+        res = sb.run(model, SERVE_LADDER, SERVE_BENCH_SEED, "cuda",
+                     kill_requests=SERVE_KILL_REQUESTS)
         torch.cuda.synchronize()
         launches = attention.flash_forward.launches
     finally:
@@ -3615,6 +3632,287 @@ def run_trainer(report):
     return launches
 
 
+# run_sharded_layouts: run_trainer's GPT-2 124M step under rules tables
+# that only a product of mesh axes or a data axis can hold, on 4 ranks of
+# the one card (gloo: NCCL refuses two ranks on one device).  The vocab
+# stays whole in every layout: 50,257 rows do not split over tp, and
+# JAX's step refuses that split too.
+LAYOUTS = {
+    # the sequence over two axes; tp is then a data axis, so the heads,
+    # split over it by default, are gathered
+    "seq_sp2_tp2": (dict(sp=2, tp=2),
+                    dict(seq=("sp", "tp"), mlp=None, vocab=None)),
+    # a local dim over a data axis: gathered, its gradient the dp sum
+    "mlp_over_dp": (dict(dp=2, tp=2), dict(mlp="dp", vocab=None)),
+    # a local dim over two axes: Megatron's pair over their product group
+    "mlp_over_ep_tp": (dict(ep=2, tp=2), dict(mlp=("ep", "tp"), vocab=None)),
+}
+LAYOUT_RANKS, LAYOUT_STEPS, LAYOUT_SEED = 4, 2, 29
+LAYOUT_PG_TIMEOUT_S, LAYOUT_JOIN_S = 120, 420
+# Against the same two steps at world size 1, in bf16: each rank's row
+# blocks go through other GEMM tilings and the losses and gradients are
+# summed over gloo in another order, as run_trainer's kernels-vs-plain
+# check allows (STEP_LOSS_TOL, STEP_NORM_RTOL); the second step follows
+# one AdamW update at the peak rate (no warm-up).
+LAYOUT_LOSS_TOL, LAYOUT_NORM_RTOL = 1e-3, 1e-2
+
+
+def layout_inputs(cfg, batch, seq, device):
+    """The layouts' optimizer, parameters' generator and tokens: the same
+    on every rank and in the world-size-1 reference."""
+    import torch
+
+    from ray_tpu_torch.train import step as train
+
+    gen = torch.Generator(device=device).manual_seed(LAYOUT_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=device)
+    return train.default_optimizer(warmup_steps=0), gen, tokens
+
+
+def layout_steps(step, state, tokens, device):
+    """``LAYOUT_STEPS`` steps: each one's loss, pre-clip grad norm and host
+    ms (synchronised), and the state."""
+    import torch
+
+    losses, norms, ms = [], [], []
+    for _ in range(LAYOUT_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, tokens)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, norms, ms, state
+
+
+def gloo_device_check(device):
+    """The collectives the sharded step makes, on this rank's device
+    tensors: all-gather and all-reduce on the world and on a two-rank
+    group.  Raises where gloo refuses one or a sum is wrong."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    pair = [dist.new_group(r) for r in ([0, 1], [2, 3])][rank // 2]
+    x = torch.full((4, 3), float(rank), device=device)
+    for group, members in ((None, range(world)),
+                           (pair, (rank // 2 * 2, rank // 2 * 2 + 1))):
+        parts = [torch.empty_like(x) for _ in members]
+        dist.all_gather(parts, x, group=group)
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        got = [p[0, 0].item() for p in parts]
+        if got != [float(r) for r in members] \
+                or y[0, 0].item() != float(sum(members)) \
+                or any(p.device != x.device for p in (*parts, y)):
+            raise RuntimeError(f"gloo on {device} tensors: all_gather {got}, "
+                               f"all_reduce {y[0, 0].item()}")
+    return {"all_gather": str(x.device), "all_reduce": str(y.device)}
+
+
+def layout_rank(rank, tmp, device, cfg, batch, seq):
+    """One rank of ``run_sharded_layouts``: gloo through a ``FileStore``
+    in ``tmp``, the device check, then every layout's steps on its mesh
+    from the same parameters and tokens; its results to
+    ``rank<r>.json`` (a traceback to ``rank<r>.err``)."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, HERE)
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+        from ray_tpu_torch.parallel.sharding import DEFAULT_RULES
+        from ray_tpu_torch.train import step as train
+
+        torch.set_num_threads(1)
+        if device == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.cuda.set_device(0)
+        store = dist.FileStore(os.path.join(tmp, "store"), LAYOUT_RANKS)
+        dist.init_process_group(
+            "gloo", store=store, rank=rank, world_size=LAYOUT_RANKS,
+            timeout=datetime.timedelta(seconds=LAYOUT_PG_TIMEOUT_S))
+        out = {"gloo": gloo_device_check(device), "layouts": {}}
+        for name, (sizes, entries) in LAYOUTS.items():
+            mesh = create_mesh(MeshConfig(**sizes), device_type=device)
+            rules = {**DEFAULT_RULES, **entries}
+            opt, gen, tokens = layout_inputs(cfg, batch, seq, device)
+            state = train.create_train_state(gpt2, cfg, opt, gen,
+                                             device=device, mesh=mesh,
+                                             rules=rules)
+            step = train.make_train_step(gpt2, cfg, opt, attn_impl="flash",
+                                         mesh=mesh, rules=rules)
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            losses, norms, ms, state = layout_steps(step, state, tokens,
+                                                    device)
+            out["layouts"][name] = {
+                "losses": losses, "grad_norms": norms, "step_ms": ms,
+                "launches": launch_counts(),
+                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                             if device == "cuda" else None)}
+            del state, step
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def sharded_layouts(device, cfg, batch, seq, tmp):
+    """``(reference, ranks)``: the world-size-1 step's losses, grad norms
+    and ms in this process, then every rank's results from
+    ``LAYOUT_RANKS`` spawned processes (each killed if it outlives
+    ``LAYOUT_JOIN_S``).  Raises with the ranks' tracebacks if one
+    fails."""
+    import multiprocessing
+
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import step as train
+
+    opt, gen, tokens = layout_inputs(cfg, batch, seq, device)
+    state = train.create_train_state(gpt2, cfg, opt, gen, device=device)
+    step = train.make_train_step(gpt2, cfg, opt, attn_impl="flash")
+    losses, norms, ms, state = layout_steps(step, state, tokens, device)
+    reference = {"losses": losses, "grad_norms": norms, "step_ms": ms}
+    del state, step, tokens
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=layout_rank,
+                         args=(r, tmp, device, cfg, batch, seq), daemon=True)
+             for r in range(LAYOUT_RANKS)]
+    start = time.monotonic()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(0.0, start + LAYOUT_JOIN_S - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join(10)
+    errors = []
+    for r in range(LAYOUT_RANKS):
+        path = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(
+            f"sharded layouts: ranks {hung} still running after "
+            f"{LAYOUT_JOIN_S} s; exit codes {[p.exitcode for p in procs]}\n"
+            + "\n".join(errors))
+    ranks = []
+    for r in range(LAYOUT_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return reference, ranks
+
+
+def check_layouts(reference, ranks, want_launches):
+    """Every rank's losses and grad norms in every layout against the
+    world-size-1 steps' (``LAYOUT_LOSS_TOL``, ``LAYOUT_NORM_RTOL``), and
+    its launches of each kernel equal to ``want_launches``.  Returns the
+    largest differences; raises ``SystemExit`` naming every mismatch."""
+    bad, worst = [], {"loss": 0.0, "grad_norm_rel": 0.0}
+    for r, res in enumerate(ranks):
+        for name in LAYOUTS:
+            got = res["layouts"][name]
+            for i in range(LAYOUT_STEPS):
+                d_loss = abs(got["losses"][i] - reference["losses"][i])
+                d_norm = abs(got["grad_norms"][i]
+                             - reference["grad_norms"][i]) \
+                    / reference["grad_norms"][i]
+                worst["loss"] = max(worst["loss"], d_loss)
+                worst["grad_norm_rel"] = max(worst["grad_norm_rel"], d_norm)
+                if not (d_loss <= LAYOUT_LOSS_TOL
+                        and d_norm <= LAYOUT_NORM_RTOL):
+                    bad.append(f"rank {r} {name} step {i}: loss "
+                               f"{got['losses'][i]} grad norm "
+                               f"{got['grad_norms'][i]}")
+            if got["launches"] != want_launches:
+                bad.append(f"rank {r} {name}: launches {got['launches']}, "
+                           f"want {want_launches}")
+    if bad:
+        raise SystemExit("sharded layouts disagree with the world-size-1 "
+                         f"steps {reference}: " + "; ".join(bad))
+    return worst
+
+
+def run_sharded_layouts(report):
+    """run_trainer's GPT-2 124M step (batch ``BATCH`` x seq ``SEQ``, bf16)
+    under each of ``LAYOUTS`` on 4 gloo ranks of the one card, two steps
+    each, against the same two steps at world size 1 in this process.
+    Returns the kernels' launches summed over the ranks' layouts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+
+    # run_trainer's model and batch; the loss chunked (the config's
+    # default) so that four ranks' full-batch logits fit on the card
+    cfg = gpt2.GPT2Config(remat=False)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="layouts_", dir=OUT_DIR)
+    try:
+        reference, ranks = sharded_layouts("cuda", cfg, BATCH, SEQ, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {k: cfg.n_layers * LAYOUT_STEPS for k in launch_counts()}
+    worst = check_layouts(reference, ranks, want)
+    print(f"sharded layouts (GPT-2 124M, batch {BATCH} x seq {SEQ}, "
+          f"{LAYOUT_RANKS} gloo ranks on this card, {free / 2**30:.1f} of "
+          f"{total / 2**30:.1f} GiB free before): gloo on CUDA tensors "
+          f"{ranks[0]['gloo']}; world size 1 losses "
+          f"{reference['losses']}, grad norms {reference['grad_norms']}, "
+          f"step ms {[round(x, 1) for x in reference['step_ms']]}; worst "
+          f"loss diff {worst['loss']:.3e} (tol {LAYOUT_LOSS_TOL:.0e}), "
+          f"grad norm {worst['grad_norm_rel']:.3e} relative (tol "
+          f"{LAYOUT_NORM_RTOL:.0e})", flush=True)
+    for name, (sizes, entries) in LAYOUTS.items():
+        runs = [res["layouts"][name] for res in ranks]
+        print(f"  {name} mesh {sizes} rules {entries}: losses "
+              f"{runs[0]['losses']}, grad norms {runs[0]['grad_norms']}; "
+              "step ms by rank "
+              + "; ".join(", ".join(f"{x:.1f}" for x in run["step_ms"])
+                          for run in runs)
+              + f"; peak GiB by rank "
+              + ", ".join(f"{run['peak_gib']:.2f}" for run in runs)
+              + f"; launches by rank {[run['launches'] for run in runs]}",
+              flush=True)
+    launches = {k: sum(res["layouts"][name]["launches"][k]
+                       for res in ranks for name in LAYOUTS)
+                for k in want}
+    report["sharded_layouts"] = {
+        "ranks": LAYOUT_RANKS, "steps": LAYOUT_STEPS, "batch": BATCH,
+        "seq": SEQ, "free_gib_before": free / 2**30,
+        "layouts": {name: {"mesh": sizes, "rules": entries}
+                    for name, (sizes, entries) in LAYOUTS.items()},
+        "gloo": ranks[0]["gloo"], "reference": reference,
+        "by_rank": ranks, "worst": worst, "launches": launches}
+    return launches
+
+
 # The user's loop (``run_torch_trainer``): run_trainer's GPT-2 124M step fed
 # through TorchTrainer and the data iterator.  3 warm-up steps, then the
 # timed ones; every batch of the dataset is consumed once.
@@ -3849,9 +4147,9 @@ def run_torch_trainer(report):
 # a time, each at half the card: the rates run from the strongest down,
 # so the weak trials reach each rung after its history holds the strong
 # ones' (the first arrival at a rung always continues).  (b) a trainer
-# inside a trial, its worker killed once at step TUNE_KILL_AT (12 steps,
-# killed at 6, for the script's time since the autoscaler's phase came;
-# it was 16 and 10).  (c) PBT at
+# inside a trial, its worker killed once at step TUNE_KILL_AT (8 steps,
+# killed at 6, for the script's time: 16 and 10 until the autoscaler's
+# phase came, then 12 and 6 until the sharded layouts' came).  (c) PBT at
 # GPT-2's width cut to TUNE_PBT_LAYERS layers and TUNE_PBT_STEPS steps, for
 # the script's time (its 1200 s limit): the weak trial can exploit at steps
 # 4 and 8.
@@ -3859,7 +4157,7 @@ TUNE_SEED = 23
 TUNE_IDS = 512
 TUNE_ASHA_LRS = [6e-4, 1e-4, 1e-5, 1e-6]
 TUNE_ASHA = {"max_t": 24, "grace_period": 6, "reduction_factor": 2}
-TUNE_TRAINER_STEPS, TUNE_CKPT_EVERY, TUNE_KILL_AT = 12, 4, 6
+TUNE_TRAINER_STEPS, TUNE_CKPT_EVERY, TUNE_KILL_AT = 8, 4, 6
 TUNE_PBT_LAYERS, TUNE_PBT_STEPS, TUNE_PBT_INTERVAL = 2, 12, 4
 TUNE_PBT_LRS = [1e-6, 6e-4]
 TUNE_START_S = 120  # a trial's wait for its peer at the start barrier
@@ -5911,14 +6209,18 @@ def run_observability(report):
 # The port's runtime benchmarks, each through its entry point in a child
 # process with a cluster (or store daemon) of its own: (label, argv,
 # timeout s).  perf's record goes under chiprun_out/; none of them writes
-# into the checkout.  For the script's time, store_bench runs 2 windows a
-# metric (its default 4) and data_bench 256 images (its default 512): at
-# the defaults the four took 143.9 s on an H100 machine's 8-core host.
+# into the checkout.  For the script's time, perf runs 2 windows a metric
+# (its default 3), store_bench 1 (its default 4) and data_bench 256 images
+# (its default 512).  On an H100 machine's 8-core host the four took 143.9
+# s at the defaults, 100.5 s at 3, 2 and 256, and 78.5 s at 2, 1 and 128
+# on a faster host; data_bench took 13.6 s at 256 and at 128 alike, so it
+# stays at 256.
 CORE_BENCHES = (
     ("perf", ["-m", "ray_tpu_torch.scripts.cli", "microbenchmark",
+              "--reps", "2",
               "--out", os.path.join(OUT_DIR, "core_bench.json")], 180),
     ("store_bench", ["-m", "ray_tpu_torch._private.store_bench",
-                     "--reps", "2"], 150),
+                     "--reps", "1"], 150),
     ("data_bench", ["-m", "ray_tpu_torch._private.data_bench",
                     "--images", "256"], 150),
     ("scale_bench", ["-m", "ray_tpu_torch._private.scale_bench",
@@ -6177,7 +6479,7 @@ def run_moe_trainer(report):
         for impl in ("flash", "plain"):  # the layer's input, and its routing
             x = llama._attention_block(
                 cfg, params["embed"][inp].to(torch.bfloat16), p0,
-                llama._positions(MOE_SEQ, None, inp.device),
+                llama._positions(MOE_SEQ, None, None, inp.device),
                 llama._attention(impl))
             h = llama.rms_norm(x, p0["mlp_norm"], cfg.norm_eps).reshape(
                 -1, cfg.d_model)
@@ -7948,6 +8250,19 @@ def dreamer_profile(algo):
                     for k, t, c in rows[:12]]}
 
 
+def phase(report, name, fn, *args):
+    """``fn(*args)``, its wall seconds printed on a line of their own and
+    added to ``report["phase_s"][name]`` (a phase run twice, as the
+    attention timings are, sums its runs)."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    seconds = time.monotonic() - t0
+    took = report.setdefault("phase_s", {})
+    took[name] = took.get(name, 0.0) + seconds
+    print(f"phase {name}: {seconds:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     t_script = time.monotonic()
     import torch
@@ -7964,7 +8279,7 @@ def main() -> int:
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
     print(f"card: {report['card']}", flush=True)
-    run_check(report)
+    phase(report, "check", run_check, report)
     t0 = time.monotonic()
     native_threads, native = build_native_in_background()
     paths = _build.build(["flash_fwd", "flash_bwd"])
@@ -7978,6 +8293,7 @@ def main() -> int:
     each = {k: round(v, 2) for k, v in native.items()}
     report["native_build_s"] = {"each": each,
                                 "wall": time.monotonic() - t0}
+    report.setdefault("phase_s", {})["build"] = time.monotonic() - t0
     print(f"built the runtime's native binaries beside them: {each} s, "
           f"{report['native_build_s']['wall']:.1f} s from the kernels' "
           f"start", flush=True)
@@ -7991,32 +8307,40 @@ def main() -> int:
             if "mma" in kernel:
                 print(f"ptxas {kernel}: {line}", flush=True)
 
-    check_kernels(report)
-    check_backward(report)
-    time_kernels(report)
-    first = time_attention(report, 1)
-    check_apply(report)
-    engine_launches = run_engine(report)
-    runtime_launches = run_runtime(report)
-    frontend_launches = run_frontends(report)
-    serve_launches = run_serve_bench(report)
-    serve_runtime_launches = run_serve(report)
-    trainer_launches = run_trainer(report)
-    torch_trainer_launches = run_torch_trainer(report)
-    tune_launches = run_tune(report)
-    plane_launches = run_actor_plane(report)
-    data_launches = run_data(report)
-    autoscaler_launches = run_autoscaler(report)
-    obs_launches = run_observability(report)
-    run_core_bench(report)
-    mixtral = [time_attention(report, 1, MIXTRAL_SHAPE)]
-    moe_launches = run_moe_trainer(report)
-    mixtral.append(time_attention(report, 2, MIXTRAL_SHAPE))
-    llama3 = [time_attention(report, 1, LLAMA3_SHAPE, LLAMA3_PLAIN)]
-    llama3_launches = run_llama3_trainer(report)
-    llama3.append(time_attention(report, 2, LLAMA3_SHAPE, LLAMA3_PLAIN))
-    second = time_attention(report, 2)
-    run_rllib(report)
+    phase(report, "check_kernels", check_kernels, report)
+    phase(report, "check_backward", check_backward, report)
+    phase(report, "time_kernels", time_kernels, report)
+    first = phase(report, "time_attention", time_attention, report, 1)
+    phase(report, "check_apply", check_apply, report)
+    engine_launches = phase(report, "engine", run_engine, report)
+    runtime_launches = phase(report, "runtime", run_runtime, report)
+    frontend_launches = phase(report, "frontends", run_frontends, report)
+    serve_launches = phase(report, "serve_bench", run_serve_bench, report)
+    serve_runtime_launches = phase(report, "serve", run_serve, report)
+    trainer_launches = phase(report, "trainer", run_trainer, report)
+    layout_launches = phase(report, "sharded_layouts", run_sharded_layouts,
+                            report)
+    torch_trainer_launches = phase(report, "torch_trainer",
+                                   run_torch_trainer, report)
+    tune_launches = phase(report, "tune", run_tune, report)
+    plane_launches = phase(report, "actor_plane", run_actor_plane, report)
+    data_launches = phase(report, "data", run_data, report)
+    autoscaler_launches = phase(report, "autoscaler", run_autoscaler, report)
+    obs_launches = phase(report, "observability", run_observability, report)
+    phase(report, "core_bench", run_core_bench, report)
+    mixtral = [phase(report, "time_attention_mixtral", time_attention,
+                     report, 1, MIXTRAL_SHAPE)]
+    moe_launches = phase(report, "moe_trainer", run_moe_trainer, report)
+    mixtral.append(phase(report, "time_attention_mixtral", time_attention,
+                         report, 2, MIXTRAL_SHAPE))
+    llama3 = [phase(report, "time_attention_llama3", time_attention, report,
+                    1, LLAMA3_SHAPE, LLAMA3_PLAIN)]
+    llama3_launches = phase(report, "llama3_trainer", run_llama3_trainer,
+                            report)
+    llama3.append(phase(report, "time_attention_llama3", time_attention,
+                        report, 2, LLAMA3_SHAPE, LLAMA3_PLAIN))
+    second = phase(report, "time_attention", time_attention, report, 2)
+    phase(report, "rllib", run_rllib, report)
 
     # times at the trainer's shape, and at the MoE trainer's under
     # at_mixtral_shape; launches are the counted runs of every path
@@ -8029,6 +8353,7 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         row = first[name]
         by_path = {"trainer": trainer_launches[name],
+                   "sharded_layouts": layout_launches[name],
                    "torch_trainer": torch_trainer_launches[name],
                    "tune": tune_launches[name],
                    "actor_plane": plane_launches[name],
@@ -8077,6 +8402,8 @@ def main() -> int:
         kernels.append(entry)
     report["kernels"] = kernels
     report["script_s"] = time.monotonic() - t_script
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["phase_s"].items()), flush=True)
     print(f"script: {report['script_s']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -56,6 +56,7 @@ import random
 import sys
 import threading
 import time
+from typing import Optional
 
 import torch
 
@@ -532,13 +533,15 @@ def _warmup(model, device) -> None:
         _log("warmup: WARNING tier pull did not trigger")
 
 
-def run(model, ladder=LADDER, seed: int = 7, device=None) -> dict:
+def run(model, ladder=LADDER, seed: int = 7, device=None,
+        kill_requests: Optional[int] = None) -> dict:
     """The whole benchmark for ``model`` = ``(state, cfg)`` (a Llama
     parameter tree and its ``LlamaConfig``): the warmup, each
     ``(concurrency, requests)`` rung of ``ladder`` under both policies,
-    then the kill rung with the tier off and on.  Returns the results
-    dict; ``results["acceptance"]`` holds the reference's checks as
-    computed here.  Runs on CUDA unless ``device="cpu"``."""
+    then the kill rung with the tier off and on (``kill_requests`` in
+    each instead of the reference's 192 where given).  Returns the
+    results dict; ``results["acceptance"]`` holds the reference's checks
+    as computed here.  Runs on CUDA unless ``device="cpu"``."""
     device = resolve_device(device)
     state, cfg = model
     # cast once: every engine of the run then shares the same weights
@@ -565,6 +568,8 @@ def run(model, ladder=LADDER, seed: int = 7, device=None) -> dict:
         rows.append(row)
 
     kill = dict(_KILL_RUNG)
+    if kill_requests is not None:
+        kill["requests"] = kill_requests
     for name, flag in (("tier_off", False), ("tier_on", True)):
         _log(f"running: kill rung {name}")
         kill[name] = cell = _run_kill_cell(

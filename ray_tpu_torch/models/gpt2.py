@@ -13,10 +13,13 @@ parameter's axes for ``parallel.sharding``.
 
 With ``shards`` (``parallel.sharding.LocalShards``, which the sharded train
 step builds) each leaf is the rank's local block.  The MLP stays split over
-tp (``LOCAL_AXES``): column-parallel ``w_in`` / ``b_in`` into the
-row-parallel ``w_out``, whose partial output is summed over the group
-before ``b_out`` is added once.  Every other split dim is all-gathered
-where it is used.  That includes the heads: the fused ``wqkv`` is one
+the group of the mlp's axes (``LOCAL_AXES``; tp by default, or a product
+of axes): column-parallel ``w_in`` / ``b_in`` into the row-parallel
+``w_out``, whose partial output is summed over the group before ``b_out``
+is added once.  Every other split dim is all-gathered where it is used,
+the MLP's too where its axes hold a data axis.  Where the rules split the
+sequence, each rank embeds its block at the block's positions and attends
+over the sequence gathered over those axes.  That includes the heads: the fused ``wqkv`` is one
 ``(d, 3d)`` leaf, and a tp rank's block of its columns is not a whole set
 of heads.  The tied ``wte`` is gathered once and serves as both the
 embedding and the head, so its gradient flows back through one gather.
@@ -32,11 +35,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
-from ray_tpu_torch.models.llama import _whole, layer_params, layer_specs
+from ray_tpu_torch.models.llama import _positions, _whole, layer_params, \
+    layer_specs
 from ray_tpu_torch.models.losses import chunked_softmax_xent, head_logits
-from ray_tpu_torch.ops.attention import ATTENTION
+from ray_tpu_torch.ops.ring_attention import dense_attention
 from ray_tpu_torch.parallel import collectives
-from ray_tpu_torch.parallel.mesh import mesh_axis_size
 from ray_tpu_torch.parallel.sharding import logical_spec as L
 
 
@@ -191,14 +194,12 @@ _LAYER_SPECS = layer_specs(_SPECS["layers"])
 
 
 def _trunk(params: Dict, wte: torch.Tensor, tokens: torch.Tensor,
-           cfg: GPT2Config, attn_impl: str, mesh, shards) -> torch.Tensor:
-    if mesh_axis_size(mesh, "sp") > 1:
-        raise ValueError("GPT-2 attends over the whole sequence; the mesh "
-                         "splits it over sp")
-    attn = ATTENTION[attn_impl]
-    s = tokens.shape[1]
+           cfg: GPT2Config, attn_impl: str, mesh, rules, shards
+           ) -> torch.Tensor:
+    attn = dense_attention(attn_impl, mesh, rules)
+    positions = _positions(tokens.shape[1], mesh, rules, tokens.device)
     wpe = _whole(params, "wpe", shards, _SPECS)
-    x = (wte[tokens] + wpe[:s][None]).to(torch_dtype(cfg.dtype))
+    x = (wte[tokens] + wpe[positions]).to(torch_dtype(cfg.dtype))
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
@@ -217,11 +218,12 @@ def trunk(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
     With ``cfg.remat`` each layer runs under a non-reentrant checkpoint
     while gradients are being recorded (``jax.checkpoint`` in JAX).
     ``shards``: the parameters are the rank's local blocks (module
-    docstring).  ``mesh`` and ``rules`` are what the sharded step passes
-    every model; the sequence is attended whole, so a mesh that splits it
-    over sp raises."""
+    docstring).  With ``mesh`` the tokens are the rank's block of the
+    sequence where ``rules`` split it, and the attention runs over the
+    sequence gathered over those axes (``ring_attention.dense_attention``);
+    the positional embeddings are the block's."""
     wte = _whole(params, "wte", shards, _SPECS)
-    return _trunk(params, wte, tokens, cfg, attn_impl, mesh, shards)
+    return _trunk(params, wte, tokens, cfg, attn_impl, mesh, rules, shards)
 
 
 def apply(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
@@ -231,7 +233,7 @@ def apply(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
     vocab) through the head tied to ``wte``, with operands in
     ``cfg.dtype``."""
     wte = _whole(params, "wte", shards, _SPECS)
-    x = _trunk(params, wte, tokens, cfg, attn_impl, mesh, shards)
+    x = _trunk(params, wte, tokens, cfg, attn_impl, mesh, rules, shards)
     return head_logits(x, wte.t())
 
 
@@ -241,6 +243,7 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: GPT2Config,
     """Next-token cross-entropy of tokens (batch, seq + 1): the mean over
     these tokens, which with a mesh are the rank's own."""
     wte = _whole(params, "wte", shards, _SPECS)
-    x = _trunk(params, wte, tokens[:, :-1], cfg, attn_impl, mesh, shards)
+    x = _trunk(params, wte, tokens[:, :-1], cfg, attn_impl, mesh, rules,
+               shards)
     return chunked_softmax_xent(x, wte.t(), tokens[:, 1:],
                                 chunk=cfg.loss_chunk)

@@ -12,18 +12,23 @@ versions on CPU tensors), or with a mesh the sequence-parallel attention of
 trainer takes.
 
 With a mesh the forwards run per rank on the rank's local tokens: a
-contiguous block of the sequence over the mesh's ``sp`` axis, whose
-positions are offset by the block's start.  Parameters are whole on every
+contiguous block of the sequence over the rules' "seq" axes (major to
+minor), whose positions are offset by the block's start.  A dense
+``attn_impl`` then attends over the sequence gathered over those axes
+(``ring_attention.dense_attention``).  Parameters are whole on every
 rank, unless the caller passes ``shards`` (``parallel.sharding.
 LocalShards``, which the sharded train step builds): then each leaf is the
 rank's local block, the ``fsdp``-split dims (and the vocab's tp split) are
 all-gathered where they are used, a stacked layer's slice inside its
 checkpoint so that remat gathers it again in the backward, and the
-``LOCAL_AXES`` stay split over tp: Megatron's column-parallel wq / wk /
-wv and w_gate / w_up into the row-parallel wo and w_down, with
-``collectives.replicate`` at each block's input and ``sum_replicated`` on
-its partial output.  The head counts and the MLP width come from the
-weights' local shapes.
+``LOCAL_AXES`` stay split over their group (one mesh axis or several):
+Megatron's column-parallel wq / wk / wv and w_gate / w_up into the
+row-parallel wo and w_down, with ``collectives.replicate`` at each block's
+input and ``sum_replicated`` on its partial output, the attention over
+the heads' group and the MLP over the mlp's.  The head counts and the MLP
+width come from the weights' local shapes.  Where the KV heads are whole
+while the query heads are split, each rank takes the KV heads its query
+heads read.
 """
 
 from __future__ import annotations
@@ -38,11 +43,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from ray_tpu_torch.models.losses import chunked_softmax_xent
-from ray_tpu_torch.ops.attention import ATTENTION
+import torch.distributed as dist
+
 from ray_tpu_torch.ops.ring_attention import SEQUENCE_PARALLEL, \
-    sequence_parallel_attention
+    dense_attention, sequence_parallel_attention
 from ray_tpu_torch.parallel import collectives
-from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.sharding import block_coords, live_axes, \
+    to_partition_spec
 from ray_tpu_torch.parallel.sharding import logical_spec as L
 
 
@@ -206,39 +213,66 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 def _attention(attn_impl: str, mesh=None, rules: Optional[Dict] = None):
     """The attention ``(q, k, v, causal=...) -> out`` that ``attn_impl``
-    names: dense "flash" (the kernels) or "plain", or with a mesh the
+    names: dense "flash" (the kernels) or "plain", over the gathered
+    sequence where the rules split it on ``mesh``, or with a mesh the
     sequence-parallel "ring", "zigzag" (the balanced ring) or "ulysses"."""
     if attn_impl in SEQUENCE_PARALLEL:
         if mesh is None:
             raise ValueError(f"attn_impl={attn_impl!r} requires a mesh")
         return functools.partial(sequence_parallel_attention, mesh=mesh,
                                  impl=attn_impl, rules=rules)
-    if mesh_axis_size(mesh, "sp") > 1:
-        raise ValueError(f"the mesh shards the sequence over sp, which "
-                         f"attn_impl={attn_impl!r} does not attend across")
-    return ATTENTION[attn_impl]
+    return dense_attention(attn_impl, mesh, rules)
 
 
-def _positions(seq: int, mesh, device) -> torch.Tensor:
+def _positions(seq: int, mesh, rules: Optional[Dict], device
+               ) -> torch.Tensor:
     """(1, seq) global positions of the rank's tokens: its contiguous
-    block of the sequence over the mesh's sp axis."""
+    block of the sequence over the rules' "seq" axes, major to minor."""
     start = 0
-    if mesh_axis_size(mesh, "sp") > 1:
-        start = mesh.get_local_rank("sp") * seq
+    if mesh is not None:
+        axes = live_axes(mesh, to_partition_spec(("seq",), rules)[0])
+        start = block_coords(mesh, axes)[1] * seq
     return (start + torch.arange(seq, device=device))[None, :]
+
+
+def _kv_weights(cfg, p, heads):
+    """wk and wv, and where the KV heads are whole while the query heads
+    are split over ``heads``, the columns of the KV heads this rank's query
+    heads read.  The whole weights are then the same on every rank of the
+    group and each rank reads a part, so their cotangents are summed over
+    it (in f32, before the cast)."""
+    wk, wv = p["attn"]["wk"], p["attn"]["wv"]
+    hd = cfg.head_dim
+    if heads is None:
+        return wk, wv
+    if p["attn"]["wq"].shape[-1] % hd or wk.shape[-1] % hd:
+        raise ValueError("the rules split a head between ranks; split the "
+                         "heads over fewer ranks")
+    if wk.shape[-1] // hd != cfg.n_kv_heads:
+        return wk, wv
+    q_local = p["attn"]["wq"].shape[-1] // hd
+    group = cfg.n_heads // cfg.n_kv_heads  # query heads per KV head
+    if q_local % group and group % q_local:
+        raise ValueError(f"{q_local} query heads per rank do not cover "
+                         f"whole GQA groups of {group}")
+    first = dist.get_rank(heads) * q_local
+    lo, hi = first // group, (first + q_local - 1) // group + 1
+    wk, wv = collectives.replicate(heads, wk, wv)
+    return wk[..., lo * hd:hi * hd], wv[..., lo * hd:hi * hd]
 
 
 def _attention_block(cfg, x, p, positions, attn, tp=None):
     """x plus the attention of its RMS-normed self: the first half of a
     layer, shared with ``models/moe.py``.  The heads are those of the
-    weights given (a tp rank's local heads); with ``tp``, the group they
-    are split over, the partial output is summed over it."""
+    weights given (a rank's local heads); with ``tp``, the group they are
+    split over, the partial output is summed over it."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     if tp is not None:
         (h,) = collectives.replicate(tp, h)
-    wq, wk, wv = (p["attn"][n].to(h.dtype) for n in ("wq", "wk", "wv"))
+    wk, wv = (w.to(h.dtype) for w in _kv_weights(cfg, p, tp))
+    wq = p["attn"]["wq"].to(h.dtype)
     q = (h @ wq).reshape(b, s, wq.shape[-1] // hd, hd)
     k = (h @ wk).reshape(b, s, wk.shape[-1] // hd, hd)
     v = (h @ wv).reshape(b, s, wv.shape[-1] // hd, hd)
@@ -252,11 +286,11 @@ def _attention_block(cfg, x, p, positions, attn, tp=None):
 
 
 def _layer(cfg: LlamaConfig, x, p, positions, attn, shards=None):
-    tp = None
+    heads = tp = None
     if shards is not None:
         p = shards.gather(p, _LAYER_SPECS)
-        tp = shards.group("heads")
-    x = _attention_block(cfg, x, p, positions, attn, tp)
+        heads, tp = shards.group("heads"), shards.group("mlp")
+    x = _attention_block(cfg, x, p, positions, attn, heads)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if tp is not None:
         (h,) = collectives.replicate(tp, h)
@@ -300,7 +334,7 @@ def trunk(state: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     the parameters are the rank's local blocks (module docstring)."""
     attn = _attention(attn_impl, mesh, rules)
     x = _whole(state, "embed", shards)[tokens].to(torch_dtype(cfg.dtype))
-    positions = _positions(tokens.shape[1], mesh, tokens.device)
+    positions = _positions(tokens.shape[1], mesh, rules, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer_params(state["layers"], i)

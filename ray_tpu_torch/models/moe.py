@@ -11,19 +11,21 @@ Attention, norm and rope are the Llama block's (``models/llama.py``), so
 attention runs through ``llama._attention``: with no mesh,
 ``flash_attention`` (the Hopper kernels on CUDA tensors).
 
-Expert parallelism: with a mesh whose ``ep`` axis (the rules' "experts"
-entry) is larger than 1, each rank's expert leaves hold its E/ep experts,
-the local shard along their "experts" axis.  The tokens are the same on
-every rank of an ``ep`` group (the default rules shard batch over
-dcn/dp/fsdp, not ep), so each rank computes the routing, runs its own
-experts on its slice of dispatch and combine, and the partial outputs are
-summed over the group: what XLA emits for the JAX package's sharding.
+Expert parallelism: with a mesh whose axes in the rules' "experts" entry
+(``ep`` by default; one axis or several, their product major to minor)
+are larger than 1, each rank's expert leaves hold its E/n experts, the
+local shard along their "experts" axis.  The tokens are the same on every
+rank of that group (the default rules shard batch over dcn/dp/fsdp, not
+ep), so each rank computes the routing, runs its own experts on its slice
+of dispatch and combine, and the partial outputs are summed over the
+group: what XLA emits for the JAX package's sharding.
 
 With ``shards`` (``parallel.sharding.LocalShards``, which the sharded
 train step builds) each leaf is the rank's local block: attention runs
-through the Llama block with its heads split over tp, the experts stay
-split over ep (``LOCAL_AXES``), and every other split dim, the experts'
-MLP width included, is all-gathered where it is used.  The batch is then
+through the Llama block with its heads split over their group, the experts
+stay split over theirs (``LOCAL_AXES``; gathered where that group holds a
+data axis), and every other split dim, the experts' MLP width included, is
+all-gathered where it is used.  The batch is then
 split over the data axes, and JAX's GSPMD routes the global token set:
 capacity, each token's place in its expert's buffer and the aux loss's
 ``f`` and ``p`` are all reckoned over every token.  So the router logits
@@ -46,8 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._device import DeviceLike, resolve_device, torch_dtype
 from ray_tpu_torch.models.llama import _attention, _attention_block, \
     _positions, _whole, layer_params, layer_specs, rms_norm
+import torch.distributed as dist
+
 from ray_tpu_torch.parallel import collectives
-from ray_tpu_torch.parallel.mesh import mesh_axis_size
+from ray_tpu_torch.parallel.mesh import axes_group
+from ray_tpu_torch.parallel.sharding import live_axes
 from ray_tpu_torch.parallel.sharding import logical_spec as L
 from ray_tpu_torch.parallel.sharding import to_partition_spec
 
@@ -211,15 +216,15 @@ def route_logits(cfg: MoEConfig, logits: torch.Tensor
             "dispatch": dispatch, "combine": combine}
 
 
-def _ep_axis(mesh, rules: Optional[Dict]) -> Optional[str]:
-    """The mesh axis the experts are sharded over, or None for none."""
-    axis = to_partition_spec(("experts",), rules)[0]
-    if axis is None or mesh is None:
+def _ep_group(mesh, rules: Optional[Dict], shards):
+    """The process group the experts are split over (the product of the
+    rules' "experts" axes), or None where they are whole on the rank."""
+    if shards is not None:
+        return shards.group("experts")
+    if mesh is None:
         return None
-    if not isinstance(axis, str):
-        raise ValueError(f"experts sharded over {axis}: expert parallelism "
-                         "takes one mesh axis")
-    return axis if mesh_axis_size(mesh, axis) > 1 else None
+    axes = live_axes(mesh, to_partition_spec(("experts",), rules)[0])
+    return axes_group(mesh, axes) if axes else None
 
 
 def _global_logits(shards, logits: torch.Tensor):
@@ -275,18 +280,17 @@ def moe_mlp(cfg: MoEConfig, x: torch.Tensor, router_w: torch.Tensor,
         dispatch, combine = dispatch[rows], combine[rows]
 
     e_local = experts["w_gate"].shape[0]
-    axis = _ep_axis(mesh, rules)
-    ep = mesh_axis_size(mesh, axis) if axis else 1
+    group = _ep_group(mesh, rules, shards)
+    ep = dist.get_world_size(group) if group is not None else 1
     if e_local * ep != e:
         raise ValueError(f"{e_local} experts per rank over ep {ep} != "
                          f"n_experts {e}")
     x_in = xf
-    if axis:
-        group = mesh.get_group(axis)
+    if group is not None:
         # every rank holds the tokens and the routing alike; its experts
         # read them, so their cotangents are summed over the group
         x_in, combine = collectives.replicate(group, xf, combine)
-        lo = mesh.get_local_rank(axis) * e_local
+        lo = dist.get_rank(group) * e_local
         dispatch = dispatch[:, lo:lo + e_local]
         combine = combine[:, lo:lo + e_local]
 
@@ -298,7 +302,7 @@ def moe_mlp(cfg: MoEConfig, x: torch.Tensor, router_w: torch.Tensor,
     expert_out = torch.einsum("ecf,efd->ecd", gate * up,
                               experts["w_down"].to(cdt))
     out = torch.einsum("nec,ecd->nd", combine.to(cdt), expert_out)
-    if axis:
+    if group is not None:
         out = collectives.sum_replicated(out, group)
 
     # Switch-style load-balancing auxiliary loss: E * sum_e f_e * p_e where
@@ -337,7 +341,7 @@ def apply(params: Dict, tokens: torch.Tensor, cfg: MoEConfig,
     its block of the batch (module docstring)."""
     embed = _whole(params, "embed", shards, _SPECS)
     x = embed[tokens].to(torch_dtype(cfg.dtype))
-    positions = _positions(tokens.shape[1], mesh, tokens.device)
+    positions = _positions(tokens.shape[1], mesh, rules, tokens.device)
     attn = _attention(attn_impl, mesh, rules)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()

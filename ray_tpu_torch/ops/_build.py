@@ -11,6 +11,7 @@ when the module is imported: the CPU never builds or loads a kernel.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -69,8 +70,17 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source, all started at once.  Raises with the compiler's
     output if any fails.  The ptxas report (registers, shared memory,
-    spills) is kept beside each library as ``<lib>.log``."""
+    spills) is kept beside each library as ``<lib>.log``.  Processes that
+    share the build directory take its lock in turn, so one builds what
+    is missing and the others find it built (the lock ends with the
+    process that holds it)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_missing(names)
+
+
+def _build_missing(names: Iterable[str]) -> Dict[str, Path]:
     paths = {n: library_path(n) for n in names}
     procs = {}
     t0 = time.monotonic()

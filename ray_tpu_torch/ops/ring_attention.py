@@ -17,10 +17,18 @@ contiguous blocks (rank ``i`` of the axis holds ``[i*s, (i+1)*s)``).
 
 Gradients are autograd through the collectives' Functions: the ring's
 backward is the reverse rotation, Ulysses' the reverse all-to-all.
+
+``dense_attention`` is the attention a dense ``attn_impl`` ("flash",
+"plain") runs where the rules split the sequence, over one mesh axis or
+several: what GSPMD makes of JAX's dense attention under such a layout.
+It all-gathers q, k and v over the sequence's axes, attends causally over
+the whole sequence and keeps the rank's rows; the gathers' backward sums
+the cotangents over those axes and keeps each rank's block.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -28,11 +36,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.ops.attention import NEG_INF, flash_attention, \
-    repeat_kv_heads
+from ray_tpu_torch.ops.attention import ATTENTION, NEG_INF, \
+    flash_attention, repeat_kv_heads
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
-from ray_tpu_torch.parallel.sharding import to_partition_spec
+from ray_tpu_torch.parallel.sharding import block_coords, live_axes, \
+    to_partition_spec
 
 # the impls of sequence_parallel_attention, which shard the sequence over
 # the mesh's sp axis
@@ -176,6 +185,13 @@ def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"unknown sequence-parallel impl {impl!r}")
     seq_axis = to_partition_spec(("batch", "seq", "heads", "head_dim"),
                                  rules)[1]
+    if isinstance(seq_axis, tuple):
+        raise ValueError(
+            f"the rules split seq over {seq_axis}, more than one mesh axis; "
+            f"ring, zigzag and ulysses run over the one axis {sp_axis!r}, as "
+            "JAX's do, so there is nothing to hold such a result against. "
+            "A dense attn_impl ('flash', 'plain') gathers the sequence "
+            "over every axis")
     if seq_axis != sp_axis:
         raise ValueError(f"the rules shard seq over {seq_axis!r}, but the "
                          f"ring runs over {sp_axis!r}")
@@ -203,3 +219,29 @@ def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
     out = ring_attention(q, k, v, group, causal=causal, sm_scale=sm_scale,
                          layout="zigzag")
     return regather(out, inv)
+
+
+def _gathered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, attn, mesh, axes, causal: bool = True
+                        ) -> torch.Tensor:
+    s = q.shape[1]
+    for axis in reversed(axes):  # minor first: blocks land major to minor
+        group = mesh.get_group(axis)
+        q, k, v = (collectives.all_gather(x, group, 1) for x in (q, k, v))
+    _, idx = block_coords(mesh, axes)
+    return attn(q, k, v, causal=causal)[:, idx * s:(idx + 1) * s]
+
+
+def dense_attention(attn_impl: str, mesh=None, rules: Optional[dict] = None):
+    """The attention ``(q, k, v, causal=...) -> out`` of dense
+    ``attn_impl`` (``ATTENTION``) on the rank's local sequence block: the
+    impl itself where the rules leave the sequence whole on ``mesh``,
+    else the impl over the whole sequence gathered over the rules' "seq"
+    axes, of which the rank keeps its rows (module docstring)."""
+    attn = ATTENTION[attn_impl]
+    axes = () if mesh is None else live_axes(
+        mesh, to_partition_spec(("seq",), rules)[0])
+    if not axes:
+        return attn
+    return functools.partial(_gathered_attention, attn=attn, mesh=mesh,
+                             axes=axes)

@@ -6,7 +6,9 @@ Counterpart of ``ray_tpu/parallel/mesh.py``.  The mesh's dims are
 sharded-data parallel (``fsdp``), tensor parallel (``tp``), sequence
 parallel (``sp``), expert parallel (``ep``), pipeline stages (``pp``) and
 ``dcn`` for slices.  A rank's sub-group for an axis is
-``mesh.get_group(axis)`` and its coordinate ``mesh.get_local_rank(axis)``.
+``mesh.get_group(axis)`` and its coordinate ``mesh.get_local_rank(axis)``;
+``axes_group`` is the group over a product of axes, which a dim split over
+several axes needs.
 
 A ``DeviceMesh`` needs an initialised process group
 (``torch.distributed.init_process_group`` with an explicit address, world
@@ -102,6 +104,40 @@ def mesh_axis_size(mesh, *axes: str) -> int:
     names = mesh.mesh_dim_names
     return math.prod(mesh.size(names.index(a)) if a in names else 1
                      for a in axes)
+
+
+def axes_group(mesh, axes):
+    """The process group of this rank over the product of the mesh axes
+    ``axes`` (a name, or names in the mesh's order).  Its ranks run major
+    to minor, as JAX's ``NamedSharding`` lays out a dim split over those
+    axes, so a member's rank in the group is the index of its block
+    (``sharding.local_block``).  One axis is ``mesh.get_group(axis)``.
+
+    ``new_group`` is collective: the first call for a tuple makes the
+    groups of every block row, so every rank of the mesh must make it at
+    the same point of its program; later calls reuse them."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    groups = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in groups:
+        import torch.distributed as dist
+
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims) or len(set(dims)) != len(dims):
+            raise ValueError(f"axes {axes} are not distinct and in the "
+                             f"mesh's order {tuple(names)}")
+        others = [d for d in range(len(names)) if d not in dims]
+        width = math.prod(mesh.size(d) for d in dims)
+        rows = mesh.mesh.permute(*others, *dims).reshape(-1, width)
+        me = dist.get_rank()
+        for row in rows:  # the mesh's host tensor of ranks, row-major
+            row = [int(r) for r in row]
+            group = dist.new_group(row)
+            if me in row:
+                groups[axes] = group
+    return groups[axes]
 
 
 @dataclass

@@ -9,7 +9,8 @@ parallelism layout.  ``to_partition_spec`` gives the entries a JAX
 ``DeviceMesh`` and ``shard_tree`` distributes a parameter tree by them.
 ``LocalShards`` is how a forward computes on a rank's local blocks: it
 all-gathers the dims that the model uses whole and names the group of the
-dims it keeps local (tensor parallelism).
+dims it keeps local (tensor parallelism), over one mesh axis or the product
+of several.
 
 ``shard_map`` has no counterpart: the torch code is already per-rank SPMD.
 """
@@ -17,6 +18,8 @@ dims it keeps local (tensor parallelism).
 from __future__ import annotations
 
 from typing import Iterable, List, Optional, Tuple, Union
+
+from ray_tpu_torch.parallel.mesh import axes_group
 
 # Default rules for transformer LMs.  Values are mesh axis names (or tuples
 # thereof), None = replicated.  The dcn (multi-slice) axis carries plain
@@ -135,6 +138,22 @@ def _axis_size(mesh, axis: str) -> int:
     return mesh.size(list(mesh.mesh_dim_names).index(axis))
 
 
+def live_axes(mesh, entry) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 in partition-spec entry ``entry``, major
+    to minor."""
+    return tuple(a for a in _axes(entry) if _axis_size(mesh, a) > 1)
+
+
+def block_coords(mesh, axes) -> Tuple[int, int]:
+    """``(n, idx)``: the number of blocks a dim split over ``axes`` has,
+    and the index of this rank's block, major axis to minor."""
+    n, idx = 1, 0
+    for axis in axes:
+        size = _axis_size(mesh, axis)
+        n, idx = n * size, idx * size + mesh.get_local_rank(axis)
+    return n, idx
+
+
 def local_block(tensor, spec: tuple, mesh):
     """The block of ``tensor`` that ``spec`` puts on this rank of ``mesh``:
     each sharded dim split evenly over its axes, major to minor, at the
@@ -142,10 +161,7 @@ def local_block(tensor, spec: tuple, mesh):
     dim is split, else a contiguous copy."""
     placements(spec, mesh)  # validates the spec against the mesh
     for dim, entry in enumerate(spec):
-        n, idx = 1, 0
-        for axis in _axes(entry):
-            size = _axis_size(mesh, axis)
-            n, idx = n * size, idx * size + mesh.get_local_rank(axis)
+        n, idx = block_coords(mesh, _axes(entry))
         if n == 1:
             continue
         if tensor.shape[dim] % n:
@@ -174,27 +190,47 @@ def shard_tree(tree, logical_tree, mesh, rules: Optional[dict] = None):
                               shape=tree.shape, stride=tree.stride())
 
 
+# A local dim that stays local only where this one is, over the same axes:
+# a rank's query heads read the KV heads of their own group (GQA).
+_LOCAL_WITH = {"kv_heads": "heads"}
+
+
 class LocalShards:
     """How a forward computes on a rank's local parameter blocks.
 
     ``local`` names the logical axes the model keeps split (its
     tensor-parallel dims, which it pairs with ``collectives.replicate`` /
-    ``sum_replicated``); every other sharded dim is all-gathered before
-    use by ``gather``, whose backward sums the cotangents over the axis
-    and keeps the rank's block.  ``gathered_axes`` and ``sharded_axes``
-    tell the train step which reductions a leaf's gradient has had."""
+    ``sum_replicated`` over ``group(name)``, the product group of the
+    dim's axes); every other sharded dim is all-gathered before use by
+    ``gather``, whose backward sums the cotangents over the axis and keeps
+    the rank's block.  A local dim split over a data axis (the rules'
+    "batch" or "seq") is gathered too: the ranks of a data axis hold other
+    tokens, so their blocks cannot add up to one product.  So is
+    "kv_heads" where "heads" is not local over the same axes; the model
+    then takes the KV heads its query heads read from the whole ones.
+    ``gathered_axes`` and ``sharded_axes`` tell the train step which
+    reductions a leaf's gradient has had."""
 
     def __init__(self, mesh, rules: Optional[dict] = None,
                  local: Iterable[str] = ()):
-        self.mesh, self.rules, self.local = mesh, rules, tuple(local)
+        self.mesh, self.rules = mesh, rules
+        data = {a for axes in self.data_axes() for a in axes}
+        keep = [n for n in local if not data & set(self._live(n))]
+        self.local = tuple(
+            n for n in keep if n not in _LOCAL_WITH
+            or (_LOCAL_WITH[n] in keep
+                and self._live(n) == self._live(_LOCAL_WITH[n])))
+
+    def _live(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes of size > 1 that split logical axis ``name``."""
+        return live_axes(self.mesh, to_partition_spec((name,), self.rules)[0])
 
     def _split(self, logical: tuple) -> List[Tuple[int, str, Tuple]]:
         """(dim, logical name, mesh axes of size > 1) of each split dim."""
         spec = to_partition_spec(logical, self.rules)
         out = []
         for dim, (name, entry) in enumerate(zip(logical, spec)):
-            axes = tuple(a for a in _axes(entry)
-                         if _axis_size(self.mesh, a) > 1)
+            axes = live_axes(self.mesh, entry)
             if axes:
                 out.append((dim, name, axes))
         return out
@@ -211,22 +247,18 @@ class LocalShards:
     def data_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
         """The mesh axes of size > 1 that split the batch and the
         sequence (the rules' "batch" and "seq" entries), major to minor."""
-        return tuple(tuple(a for a in _axes(entry)
-                           if _axis_size(self.mesh, a) > 1)
+        return tuple(live_axes(self.mesh, entry)
                      for entry in to_partition_spec(("batch", "seq"),
                                                     self.rules))
 
     def group(self, name: str):
-        """The process group of the mesh axis that splits logical axis
-        ``name``, or None where it is whole."""
-        axes = self._split((name,))
-        if not axes:
+        """The process group over the mesh axes that split local logical
+        axis ``name`` (their product, major to minor), or None where it is
+        whole or gathered."""
+        axes = self._live(name)
+        if name not in self.local or not axes:
             return None
-        if len(axes[0][2]) != 1:
-            raise NotImplementedError(
-                f"logical axis {name!r} is split over {axes[0][2]}; a local "
-                "dim takes one mesh axis")
-        return self.mesh.get_group(axes[0][2][0])
+        return axes_group(self.mesh, axes)
 
     def gather(self, tree, logical_tree):
         """``tree`` with every leaf's non-local split dims all-gathered

@@ -8,16 +8,19 @@ On a mesh, the JAX package has XLA insert the collectives; here the step
 makes them.  ``create_train_state`` shards the parameters and moments by
 the model's ``param_logical_specs`` (DTensors); the step gives every rank
 the same global batch, takes the rank's block (batch over the rules'
-"batch" axes, a contiguous sequence block over "seq"), runs the model on
-the local parameter blocks (``parallel.sharding.LocalShards``: gathers
-before use, Megatron's pair on the model's ``LOCAL_AXES``), then averages
-loss and gradients over the data axes and takes the global norm over each
-leaf's shards.  The expert axis is not a data axis (the batch rule is
-``("dcn", "dp", "fsdp")``): the ranks of an ep group hold the same rows,
-the expert leaves stay split over it and the others are whole there, so
-no gradient is summed over ep.  No leaf and no batch rule names the
-pipeline axis, so, as in JAX's step, every rank of a pp group runs the
-whole step alike (``parallel.pipeline`` is its own entry point).
+"batch" axes, a contiguous sequence block over the "seq" axes, each major
+to minor), runs the model on the local parameter blocks
+(``parallel.sharding.LocalShards``: gathers before use, Megatron's pair on
+the model's ``LOCAL_AXES`` over one mesh axis or a product of several),
+then averages loss and gradients over the data axes and takes the global
+norm over each leaf's shards.  A local dim split over a data axis is
+gathered like any other dim.  The expert axis is not a data axis (the
+batch rule is ``("dcn", "dp", "fsdp")``): the ranks of an ep group hold
+the same rows, the expert leaves stay split over it and the others are
+whole there, so no gradient is summed over ep.  No leaf and no batch rule
+names the pipeline axis, so, as in JAX's step, every rank of a pp group
+runs the whole step alike (``parallel.pipeline`` is its own entry
+point).
 
 ``default_optimizer`` is the port's own code, not ``torch.optim.AdamW``
 (which decays before the Adam step): it is the JAX package's
@@ -39,8 +42,8 @@ from torch.distributed.tensor import DTensor
 from ray_tpu_torch._device import DeviceLike
 from ray_tpu_torch.ops.ring_attention import SEQUENCE_PARALLEL
 from ray_tpu_torch.parallel.mesh import mesh_axis_size
-from ray_tpu_torch.parallel.sharding import LocalShards, local_block, \
-    placements, shard_tree, to_partition_spec
+from ray_tpu_torch.parallel.sharding import LocalShards, block_coords, \
+    local_block, placements, shard_tree, to_partition_spec
 
 ADAM_EPS = 1e-8  # optax.adamw's eps, outside the square root
 
@@ -204,16 +207,10 @@ class _Sharded:
         self.mesh = mesh
         self.shards = LocalShards(mesh, rules, model.LOCAL_AXES)
         for name in model.LOCAL_AXES:
-            self.shards.group(name)  # one mesh axis per local dim
+            # makes a product of axes' groups here, on every rank alike
+            self.shards.group(name)
         self.batch_axes, self.seq_axes = self.shards.data_axes()
-        if len(self.seq_axes) > 1:
-            raise NotImplementedError("the sequence splits over one axis")
         self.data_axes = self.batch_axes + self.seq_axes
-        local_axes = {a for n in model.LOCAL_AXES
-                      for a in self._live(to_partition_spec((n,), rules)[0])}
-        if local_axes & set(self.data_axes):
-            raise NotImplementedError(
-                f"a local dim is split over a data axis {sorted(local_axes)}")
         self.n_data = math.prod(self._size(a) for a in self.data_axes)
         specs = tree_leaves(model.param_logical_specs(cfg))  # tuples
         self.plans = []  # per leaf: (axes to sum over, scale, norm axes)
@@ -229,11 +226,6 @@ class _Sharded:
     def _size(self, axis: str) -> int:
         return mesh_axis_size(self.mesh, axis)
 
-    def _live(self, entry) -> tuple:
-        axes = () if entry is None else (
-            (entry,) if isinstance(entry, str) else tuple(entry))
-        return tuple(a for a in axes if self._size(a) > 1)
-
     def _sum(self, t: torch.Tensor, axes) -> torch.Tensor:
         for axis in axes:
             dist.all_reduce(t, group=self.mesh.get_group(axis))
@@ -241,26 +233,23 @@ class _Sharded:
 
     def block(self, tokens: torch.Tensor) -> torch.Tensor:
         """The rank's block of a global (batch, seq + 1) batch: its rows
-        over the batch axes (major to minor), and with the sequence split,
-        its contiguous block of seq tokens plus the next one (the last
-        target)."""
-        n, idx = 1, 0
-        for axis in self.batch_axes:
-            size = self._size(axis)
-            n, idx = n * size, idx * size + self.mesh.get_local_rank(axis)
+        over the batch axes, and with the sequence split, its contiguous
+        block of seq tokens over the seq axes (both major to minor) plus
+        the next one (the last target)."""
+        n, idx = block_coords(self.mesh, self.batch_axes)
         if tokens.shape[0] % n:
             raise ValueError(f"batch {tokens.shape[0]} does not split over "
                              f"{self.batch_axes} ({n} blocks)")
         per = tokens.shape[0] // n
         tokens = tokens[idx * per:(idx + 1) * per]
         if self.seq_axes:
-            sp = self._size(self.seq_axes[0])
+            n, idx = block_coords(self.mesh, self.seq_axes)
             seq = tokens.shape[1] - 1
-            if seq % sp:
-                raise ValueError(f"seq {seq} does not split over sp {sp}")
-            s = seq // sp
-            start = self.mesh.get_local_rank(self.seq_axes[0]) * s
-            tokens = tokens[:, start:start + s + 1]
+            if seq % n:
+                raise ValueError(f"seq {seq} does not split over "
+                                 f"{self.seq_axes} ({n} blocks)")
+            s = seq // n
+            tokens = tokens[:, idx * s:idx * s + s + 1]
         return tokens
 
     @torch.no_grad()
@@ -306,10 +295,10 @@ def make_train_step(model: Any, cfg: Any, optimizer: ClippedAdamW,
     copy of the parameters; the model's own loss splits the work."""
     sharded = None
     if mesh is not None and mesh.size() > 1:
-        # refuses the layouts the step cannot split, whichever loss it runs
+        if loss_fn is not None:
+            return _full_loss_step(model, cfg, optimizer, loss_fn, mesh,
+                                   rules)
         sharded = _Sharded(model, cfg, mesh, rules)
-    if loss_fn is not None and sharded is not None:
-        return _full_loss_step(model, cfg, optimizer, loss_fn, mesh, rules)
     if loss_fn is None:
         kwargs = {} if attn_impl is None else {"attn_impl": attn_impl}
         if attn_impl in SEQUENCE_PARALLEL or sharded is not None:

@@ -4,10 +4,12 @@
 Three steps of the tiny Llama in f32 (``warmup_steps=1``, so the second and
 third updates move the parameters) from the same parameters and tokens, at
 the recipe's ``fsdp x tp`` structure, at ``dp x fsdp`` and at ``fsdp x sp``
-with ring attention, and at ``fsdp x tp`` with a caller's ``loss_fn`` (the
-model's loss plus ``SQUARES_WEIGHT`` times the parameters' sum of squares):
-every rank's loss, grad norm and local block of every parameter against
-JAX's.
+with ring attention, at ``fsdp x tp`` with a caller's ``loss_fn`` (the
+model's loss plus ``SQUARES_WEIGHT`` times the parameters' sum of squares),
+and under rules tables other than the default (``Case.rules``, both steps
+taking the same table): the sequence over two mesh axes, the MLP over a
+data axis, and the heads and the MLP over the product of two axes.  Every
+rank's loss, grad norm and local block of every parameter against JAX's.
 
 One spawn runs every case; the children import torch and the port only and
 rendezvous through a ``FileStore`` under the test's temporary directory,
@@ -22,6 +24,7 @@ import multiprocessing
 import os
 import time
 import traceback
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -51,7 +54,9 @@ class Case:
     """A model on a mesh: its MeshConfig fields, the port's attn_impl and
     JAX's.  ``local_routing``: the MoE routes each rank's rows alone (a
     negative control, held to the case without it).  ``custom_loss``: both
-    steps take ``loss_fn``, the model's loss plus the squares penalty."""
+    steps take ``loss_fn``, the model's loss plus the squares penalty.
+    ``rules``: entries that replace the default rules table's, in both
+    steps (None: the default table)."""
 
     model: str
     mesh: dict
@@ -59,13 +64,27 @@ class Case:
     jax_impl: str = "xla"
     local_routing: bool = False
     custom_loss: bool = False
+    rules: Optional[dict] = None
 
+
+# the sequence over two mesh axes (tp is then a data axis, so the heads,
+# split over it by default, are gathered: a local dim over a data axis)
+SEQ_SP_TP = dict(seq=("sp", "tp"), mlp=None, vocab=None)
+# the heads and the MLP local over the product of ep and tp; the tiny
+# Llama's 2 KV heads cannot split 4 ways, so they stay over tp
+HEADS_MLP_EP_TP = dict(heads=("ep", "tp"), kv_heads="tp", mlp=("ep", "tp"))
 
 CASES = {"fsdp2_tp2": Case("llama", dict(fsdp=2, tp=2)),
          "dp2_fsdp2": Case("llama", dict(dp=2, fsdp=2)),
          "fsdp2_sp2": Case("llama", dict(fsdp=2, sp=2), "ring", "ring"),
          "fsdp2_tp2/custom_loss": Case("llama", dict(fsdp=2, tp=2),
-                                       custom_loss=True)}
+                                       custom_loss=True),
+         "llama/seq_sp2_tp2": Case("llama", dict(sp=2, tp=2),
+                                   rules=SEQ_SP_TP),
+         "llama/mlp_over_dp": Case("llama", dict(dp=2, tp=2),
+                                   rules=dict(mlp="dp")),
+         "llama/heads_mlp_over_ep_tp": Case("llama", dict(ep=2, tp=2),
+                                            rules=HEADS_MLP_EP_TP)}
 
 
 CONFIGS = {"llama": "LlamaConfig", "gpt2": "GPT2Config", "moe": "MoEConfig"}
@@ -82,6 +101,11 @@ def _config(model: str):
 
 def _optimizer(step_mod):
     return step_mod.default_optimizer(warmup_steps=1)
+
+
+def _rules(case, defaults):
+    """The case's rules table over a package's ``DEFAULT_RULES``."""
+    return None if case.rules is None else {**defaults, **case.rules}
 
 
 def _tokens():
@@ -119,14 +143,16 @@ def _run_case(name, case, tokens):
 
     from ray_tpu_torch.models import moe
     from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.sharding import DEFAULT_RULES
     from ray_tpu_torch.train import step
 
     model = importlib.import_module(f"ray_tpu_torch.models.{case.model}")
     mesh = create_mesh(MeshConfig(**case.mesh), device_type="cpu")
+    rules = _rules(case, DEFAULT_RULES)
     opt = _optimizer(step)
     state = step.create_train_state(
         model, _config(case.model), opt, torch.Generator().manual_seed(0),
-        "cpu", mesh=mesh)
+        "cpu", mesh=mesh, rules=rules)
     loss_fn = None
     if case.custom_loss:
         cfg = _config(case.model)
@@ -135,7 +161,7 @@ def _run_case(name, case, tokens):
             step.tree_leaves, lambda p: p.square().sum())
     run = step.make_train_step(model, _config(case.model), opt,
                                loss_fn=loss_fn, attn_impl=case.impl,
-                               mesh=mesh)
+                               mesh=mesh, rules=rules)
     route, global_logits, dropped = moe.route_logits, moe._global_logits, []
 
     def counted(cfg, logits):
@@ -216,7 +242,7 @@ def _jax_refs(cases):
     import jax.numpy as jnp
 
     from ray_tpu.parallel.mesh import MeshConfig, create_mesh
-    from ray_tpu.parallel.sharding import named_shardings
+    from ray_tpu.parallel.sharding import DEFAULT_RULES, named_shardings
     from ray_tpu.train import step as jstep
     from ray_tpu_torch.train.step import tree_map
 
@@ -247,15 +273,17 @@ def _jax_refs(cases):
                     jax.tree.map(np.asarray, grads))
             mesh = create_mesh(MeshConfig(**case.mesh),
                                devices=jax.devices()[:WORLD])
+            rules = _rules(case, DEFAULT_RULES)
             opt = _optimizer(jstep)
             with mesh:
                 p = jax.device_put(
                     jax.tree.map(jnp.asarray, params),
-                    named_shardings(jmod.param_logical_specs(jcfg), mesh))
+                    named_shardings(jmod.param_logical_specs(jcfg), mesh,
+                                    rules))
                 state = {"params": p, "opt_state": opt.init(p),
                          "step": jnp.zeros((), jnp.int32)}
                 run = jstep.make_train_step(jmod, jcfg, mesh, opt,
-                                            loss_fn=loss_fn,
+                                            rules=rules, loss_fn=loss_fn,
                                             attn_impl=case.jax_impl,
                                             donate=False)
                 for i in range(STEPS):
@@ -325,9 +353,10 @@ def check_case(refs, results, name, case):
     """Loss and pre-clip grad norm of each step on every rank, and every
     rank's block of every parameter after three steps (the entries whose
     first gradient is within 100x Adam's eps to ``ADAM_TOL``)."""
-    from ray_tpu.parallel.sharding import to_partition_spec
+    from ray_tpu.parallel.sharding import DEFAULT_RULES, to_partition_spec
 
     jmod, jcfg = _jax_model(case.model)
+    rules = _rules(case, DEFAULT_RULES)
     shape = [case.mesh.get(a, 1) for a in AXES]
     specs = _flatten(jmod.param_logical_specs(jcfg))
     moved, ill, total = 0.0, 0, 0
@@ -343,7 +372,7 @@ def check_case(refs, results, name, case):
         idx = np.unravel_index(r, shape)
         coords = {a: (int(i), n) for a, i, n in zip(AXES, idx, shape)}
         for key, want in refs[f"{name}/params"].items():
-            spec = to_partition_spec(specs[key])
+            spec = to_partition_spec(specs[key], rules)
             got = res[f"{name}/params/{key}"]
             want = _block(want, spec, coords)
             assert got.shape == want.shape, (r, key)
